@@ -9,17 +9,26 @@ Phases, each ending with one line that carries its seconds:
 1. build    nvcc builds esc_tpu_torch/csrc/*.cu for sm_90a (first use)
 2. kernels  each CUDA kernel against its plain PyTorch version, on the
             card, at the shapes ESC-Base serving gives it (4 clips of 3 s);
-            kernel, plain and library-call times
+            call time (CUDA events around the Python calls, host work
+            included) of the kernel, its plain version and one library
+            call
 3. main     ESC-Base at full width (random weights from seed 0): encode ->
             decode and roundtrip at num_streams 1, 3 and 6 and the compress
             CLI on one generated wav, with the kernels' launch counts; then
             the same model on the plain versions, codes and waveforms
             compared; the real-time factor
-4. profile  device time by kernel over one roundtrip (torch.profiler)
+4. profile  device time by kernel over one roundtrip (torch.profiler), then
+            each kernel's, its plain version's and the library call's
+            device time at the shapes of phase 2
 
 The second-to-last line is the kernels' JSON summary, the last
 {"ok": true, "device": {...}}. Any failed check raises: the script then
 exits non-zero and prints no result, as it does without a CUDA device.
+
+    python3 chip_smoke.py --kernels-from CHECKOUT
+
+runs phase 2's timing alone for the esc_tpu_torch of another checkout
+(say a parent commit), for a comparison within one session.
 """
 
 from __future__ import annotations
@@ -52,6 +61,8 @@ CODE_MISMATCH_MAX = 2e-3   # tests/test_ref_parity.py:111-122
 WAVE_ATOL = 5e-4
 ATTN_TOL = {torch.float32: (2e-5, 1e-5), torch.bfloat16: (5e-2, 5e-2)}
 NEAR_TIE = 1e-5            # float64 gap of the two nearest codewords
+# window counts that are no multiple of a grid or of the windows per tile
+ATTN_RAGGED = [(1, 3, 15), (7, 6, 12), (301, 24, 16), (301, 3, 24)]
 
 
 def phase(name: str, t0: float, msg: str = "") -> float:
@@ -62,8 +73,11 @@ def phase(name: str, t0: float, msg: str = "") -> float:
     return now
 
 
-def cuda_time_ms(fn, reps: int = 20) -> float:
-    """Mean device time of ``fn()`` in ms, by CUDA events, after warm-up."""
+def call_ms(fn, reps: int = 20) -> float:
+    """Mean time of one ``fn()`` in ms as the caller pays it, host work
+    included: CUDA events around ``reps`` back-to-back calls, after
+    warm-up. Once a kernel takes less than its wrapper's host work, this
+    measures the host."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -74,6 +88,71 @@ def cuda_time_ms(fn, reps: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _on_device(event) -> bool:
+    return getattr(event, "device_type", None) is not None and \
+        "CUDA" in str(event.device_type)
+
+
+def queued_ms(fn, reps: int = 20) -> float:
+    """Mean device time of one ``fn()`` in ms by CUDA events around
+    ``reps`` calls queued behind a sleeping kernel, so that the host's
+    launches overlap the sleep and the calls run back to back."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)  # ~25 ms at H100 clocks
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, kernel: str | None = None, reps: int = 20) -> float:
+    """Mean device time of one ``fn()`` in ms: the durations of the CUDA
+    kernels it launches, summed by ``torch.profiler`` over ``reps`` calls
+    after warm-up. With ``kernel``, the mean over the launches of the
+    kernels whose name holds it (a trace may drop one; one that kept fewer
+    than half is taken again, twice at most). Where the traces lost the
+    kernel three times, as happens now and then on the card's machine,
+    :func:`queued_ms` times it instead, and says so."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if _on_device(e)]
+        n = reps
+        if kernel is not None:
+            events = [e for e in events if kernel in e.key]
+            n = sum(e.count for e in events)
+            if not reps // 2 <= n <= reps:
+                continue
+        us = sum(e.self_device_time_total for e in events)
+        if us > 0:
+            return us / 1e3 / n
+    print(f"  profiler traces lost {kernel or 'the device'} three times: "
+          f"timed by events behind a queued sleep", flush=True)
+    return queued_ms(fn, reps)
+
+
+# per clock, the keys of (kernel, plain version, library call)
+_KEYS = {"device": ("device_ms", "plain_ms", "library_ms"),
+         "call": ("call_ms", "plain_call_ms", "library_call_ms")}
+
+
+def clocked(clock: str, fn, kernel: str | None = None) -> float:
+    """ms of one ``fn()`` by ``clock``: "device" (:func:`device_ms`) or
+    "call" (:func:`call_ms`)."""
+    return device_ms(fn, kernel) if clock == "device" else call_ms(fn)
 
 
 def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
@@ -132,11 +211,13 @@ def check_argmin(kern, rng, dev):
     def normed(a):
         return a / np.linalg.norm(a, axis=-1, keepdims=True)
 
-    for N, d in [(600, 8), (1200, 6), (1200, 8), (1200, 12), (1200, 16),
-                 (1200, 32)]:
+    cases = [(600, 1024, 8)] + [(1200, 1024, d) for d in (6, 8, 12, 16, 32)]
+    cases += [(N, K, d) for N in (1, 7, 4801) for K in (128, 1024)
+              for d in range(6, 33)]
+    for N, K, d in cases:
         z = torch.tensor(normed(rng.standard_normal((N, d))),
                          dtype=torch.float32, device=dev)
-        cb = torch.tensor(normed(rng.standard_normal((1024, d))),
+        cb = torch.tensor(normed(rng.standard_normal((K, d))),
                           dtype=torch.float32, device=dev)
         ours, ref = wrapper(z, cb), plain(z, cb)
         dist = torch.cdist(z.double(), cb.double()) ** 2
@@ -144,7 +225,7 @@ def check_argmin(kern, rng, dev):
         tie = (two[:, 1] - two[:, 0]) <= NEAR_TIE
         diff = ours != ref
         if bool((diff & ~tie).any()):
-            raise RuntimeError(f"codebook_argmin N={N} d={d}: "
+            raise RuntimeError(f"codebook_argmin N={N} K={K} d={d}: "
                                f"{int((diff & ~tie).sum())} rows differ")
         rows = torch.arange(N, device=dev)
         err = (dist[rows, ours.long()] - dist[rows, ref.long()]).abs().max()
@@ -164,7 +245,8 @@ def check_argmin(kern, rng, dev):
     nan = wrapper(z, cb)
     if not torch.equal(nan, plain(z, cb)) or nan[0] != 0 or nan[4] != 0:
         raise RuntimeError(f"codebook_argmin all-NaN rows gave {nan.tolist()}")
-    print(f"  codebook_argmin: {checked} rows at K=1024, d in 6..32: "
+    print(f"  codebook_argmin: {checked} rows in {len(cases)} shapes (N 1 "
+          f"to 4801, K 128 and 1024, d 6..32): "
           f"{excused} differ, all near ties (float64 gap <= {NEAR_TIE}); "
           f"duplicate rows -> {dup}; all-NaN rows -> 0; max |dist diff| "
           f"{max_err:.3g}", flush=True)
@@ -174,7 +256,7 @@ def check_argmin(kern, rng, dev):
 def attention_inputs(rng, dev, G, nh, hd, masked, dtype):
     """Random qkv and bias; the mask has one entry per window of a clip,
     as the SW-MSA mask of the main path."""
-    C, nW = nh * hd, G // BATCH
+    C, nW = nh * hd, (G // BATCH if G % BATCH == 0 else G)
     qkv = torch.tensor(rng.standard_normal((G, 16, 3 * C)),
                        dtype=torch.float32, device=dev).to(dtype)
     bias = torch.tensor(rng.standard_normal((nh, 16, 16)),
@@ -203,46 +285,48 @@ def check_attention(kern, rng, dev, shapes):
                                   f"masked={masked} {dtype}: {m}")
                 max_err[dtype] = max(max_err[dtype],
                                      float((ours - ref).abs().max()))
-    print(f"  window_attention: {len(shapes)} geometries x masked/unmasked "
+    print(f"  window_attention: {len(shapes)} geometries (G 1 to 4800) x "
+          f"masked/unmasked "
           f"x f32/bf16 agree; max abs err f32 "
           f"{max_err[torch.float32]:.3g} (atol 2e-5), bf16 "
           f"{max_err[torch.bfloat16]:.3g} (atol 5e-2)", flush=True)
     return max_err[torch.float32]
 
 
-def time_argmin(kern, rng, dev, calls):
+def time_argmin(kern, rng, dev, calls, clock):
+    """Times by ``clock`` of the kernel, its plain version and
+    ``torch.cdist`` + ``argmin`` at each shape, summed over the calls of one
+    roundtrip."""
     wrapper, plain = kern["codebook_argmin"]
-    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0.0,
-           "flops": 0.0}
+    tot = dict.fromkeys(_KEYS[clock] + ("bytes", "flops"), 0.0)
     for (N, K, d), n in _count(calls).items():
         z = torch.nn.functional.normalize(torch.randn(N, d, device=dev), dim=1)
         cb = torch.nn.functional.normalize(torch.randn(K, d, device=dev),
                                            dim=1)
-        ms = cuda_time_ms(lambda: wrapper(z, cb))
-        pms = cuda_time_ms(lambda: plain(z, cb))
-        lms = cuda_time_ms(lambda: torch.cdist(z, cb).argmin(1))
-        print(f"  codebook_argmin N={N} K={K} d={d} x{n}: kernel {ms:.4f} "
-              f"ms, plain {pms:.4f} ms, cdist+argmin {lms:.4f} ms",
-              flush=True)
-        tot["ms"] += n * ms
-        tot["plain_ms"] += n * pms
-        tot["library_ms"] += n * lms
+        times = (clocked(clock, lambda: wrapper(z, cb),
+                         "codebook_argmin_kernel"),
+                 clocked(clock, lambda: plain(z, cb)),
+                 clocked(clock, lambda: torch.cdist(z, cb).argmin(1)))
+        print(f"  codebook_argmin N={N} K={K} d={d} x{n}: {clock} ms: kernel "
+              f"{times[0]:.4f}, plain {times[1]:.4f}, cdist+argmin "
+              f"{times[2]:.4f}", flush=True)
+        for key, t in zip(_KEYS[clock], times):
+            tot[key] += n * t
         tot["bytes"] += n * 4 * (N * d + K * d + N)
         tot["flops"] += n * (2 * N * K * d + 3 * N * K)
     return tot
 
 
-def time_attention(kern, rng, dev, calls):
+def time_attention(kern, rng, dev, calls, clock):
+    """As :func:`time_argmin`, against ``scaled_dot_product_attention``
+    with bias and mask as one float mask."""
     wrapper, plain = kern["window_attention"]
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0.0,
-           "flops": 0.0}
+    tot = dict.fromkeys(_KEYS[clock] + ("bytes", "flops"), 0.0)
     for (G, nh, hd, masked), n in _count(calls).items():
         qkv, bias, mask = attention_inputs(rng, dev, G, nh, hd, masked,
                                            torch.float32)
         scale = hd ** -0.5
-        ms = cuda_time_ms(lambda: wrapper(qkv, bias, mask, nh, scale))
-        pms = cuda_time_ms(lambda: plain(qkv, bias, mask, nh, scale))
         q, k, v = qkv.reshape(G, 16, 3, nh, hd).permute(2, 0, 3, 1,
                                                         4).contiguous()
         full = bias[None].expand(G, nh, 16, 16)
@@ -251,18 +335,22 @@ def time_attention(kern, rng, dev, calls):
             full = (full.reshape(G // nW, nW, nh, 16, 16)
                     + mask[None, :, None]).reshape(G, nh, 16, 16)
         full = full.contiguous()
-        lms = cuda_time_ms(lambda: sdpa(q, k, v, attn_mask=full,
-                                        scale=scale))
-        print(f"  window_attention G={G} nh={nh} hd={hd} "
-              f"{'masked' if masked else 'unmasked'} x{n}: kernel "
-              f"{ms:.4f} ms, plain {pms:.4f} ms, sdpa {lms:.4f} ms",
-              flush=True)
+        times = (clocked(clock, lambda: wrapper(qkv, bias, mask, nh, scale),
+                         "window_attention_kernel"),
+                 clocked(clock, lambda: plain(qkv, bias, mask, nh, scale)),
+                 clocked(clock, lambda: sdpa(q, k, v, attn_mask=full,
+                                             scale=scale)))
         C = nh * hd
-        tot["ms"] += n * ms
-        tot["plain_ms"] += n * pms
-        tot["library_ms"] += n * lms
-        tot["bytes"] += n * 4 * (G * 16 * 4 * C + nh * 256
-                                 + (mask.shape[0] * 256 if masked else 0))
+        nbytes = 4 * (G * 16 * 4 * C + nh * 256
+                      + (mask.shape[0] * 256 if masked else 0))
+        print(f"  window_attention G={G} nh={nh} hd={hd} "
+              f"{'masked' if masked else 'unmasked'} x{n}: {clock} ms: "
+              f"kernel {times[0]:.4f} (bound "
+              f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f}), plain {times[1]:.4f}, "
+              f"sdpa {times[2]:.4f}", flush=True)
+        for key, t in zip(_KEYS[clock], times):
+            tot[key] += n * t
+        tot["bytes"] += n * nbytes
         tot["flops"] += n * G * nh * (4 * 256 * hd + 5 * 256)
     return tot
 
@@ -327,10 +415,42 @@ def check_main_path(model, plain_model, x, out, cli, tmp):
           f"to the .npy codes {blob_codes.shape}", flush=True)
 
 
+def time_kernels(kern, rng, dev, clock):
+    """Both kernels by ``clock`` at the calls of one roundtrip at ns 6."""
+    argmin_calls, attn_calls = main_path_calls(ESC_BASE, BATCH, CLIP, 6)
+    return {"codebook_argmin": time_argmin(kern, rng, dev, argmin_calls,
+                                           clock),
+            "window_attention": time_attention(kern, rng, dev, attn_calls,
+                                               clock)}
+
+
+def kernel_times(root: str) -> int:
+    """Phase 2's timing alone, for the esc_tpu_torch package under ``root``
+    (another checkout, e.g. a parent commit unpacked with ``git archive``):
+    one JSON line of per-roundtrip device and call ms. Run two checkouts in
+    turns in one session to compare them on one card."""
+    sys.path.insert(0, os.path.abspath(root))
+    import esc_tpu_torch
+    from esc_tpu_torch.ops.kernels import KERNELS
+    if not esc_tpu_torch.__file__.startswith(os.path.abspath(root)):
+        raise RuntimeError(f"esc_tpu_torch came from {esc_tpu_torch.__file__}")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED)
+    times = time_kernels(KERNELS, rng, dev, "call")
+    for name, tm in time_kernels(KERNELS, rng, dev, "device").items():
+        times[name].update(tm)
+    print(json.dumps({"from": root, "kernels": {
+        name: {k: tm[k] for k in ("device_ms", "call_ms")}
+        for name, tm in times.items()}}), flush=True)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
+    if len(sys.argv) == 3 and sys.argv[1] == "--kernels-from":
+        return kernel_times(sys.argv[2])
     t0 = time.time()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -349,6 +469,10 @@ def main() -> int:
           flush=True)
     path, built = _build.build()
     _build.library()
+    for line in _build.build_log().splitlines():
+        if any(w in line for w in ("Compiling entry", "registers", "spill")):
+            print("  ptxas: " + line.strip().removeprefix("ptxas info    :")
+                  .strip(), flush=True)
     t0 = phase("1 build", t0, f"{'built' if built else 'found'} "
                f"{os.path.relpath(path)}")
 
@@ -357,10 +481,11 @@ def main() -> int:
     argmin_calls, attn_calls = main_path_calls(ESC_BASE, BATCH, CLIP, 6)
     attn_shapes = sorted({(G, nh, hd) for G, nh, hd, _ in attn_calls})
     argmin_err = check_argmin(KERNELS, rng, dev)
-    attn_err = check_attention(KERNELS, rng, dev, attn_shapes)
-    timing = {"codebook_argmin": time_argmin(KERNELS, rng, dev, argmin_calls),
-              "window_attention": time_attention(KERNELS, rng, dev,
-                                                 attn_calls)}
+    attn_err = check_attention(KERNELS, rng, dev,
+                               attn_shapes + ATTN_RAGGED)
+    # call times here, device times in phase 4: a profiler session slows
+    # the host's later launches, which would show in phase 3
+    timing = time_kernels(KERNELS, rng, dev, "call")
     t0 = phase("2 kernels", t0, "all kernels agree with their plain versions")
 
     model = make_model(ESC_BASE, seed=SEED, device=dev)
@@ -418,9 +543,7 @@ def main() -> int:
         model.roundtrip(x, num_streams=6)
         torch.cuda.synchronize()
         wall = time.perf_counter() - start
-    events = [e for e in prof.key_averages()
-              if getattr(e, "device_type", None) is not None
-              and "CUDA" in str(e.device_type)]
+    events = [e for e in prof.key_averages() if _on_device(e)]
     dev_us = sum(e.self_device_time_total for e in events)
     if dev_us > 0:
         print(f"  one roundtrip: wall {wall * 1e3:.2f} ms, device busy "
@@ -431,6 +554,14 @@ def main() -> int:
                   f"x{e.count:<4d} {e.key[:90]}", flush=True)
     else:
         print("  profiler recorded no device time: not measured", flush=True)
+    for name, tm in time_kernels(KERNELS, rng, dev, "device").items():
+        timing[name].update(tm)
+    for name, tm in timing.items():
+        print(f"  {name} per roundtrip at ns=6, device / call ms: kernel "
+              f"{tm['device_ms']:.4f} / {tm['call_ms']:.4f}, plain "
+              f"{tm['plain_ms']:.4f} / {tm['plain_call_ms']:.4f}, library "
+              f"{tm['library_ms']:.4f} / {tm['library_call_ms']:.4f}, bound "
+              f"{bound_ms(tm['bytes'], tm['flops'])[0]:.4f}", flush=True)
     t0 = phase("4 profile", t0)
 
     summary = []
@@ -444,9 +575,12 @@ def main() -> int:
         summary.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": launches[name],
-            "max_abs_err": err, "ms": tm["ms"], "plain_ms": tm["plain_ms"],
+            "max_abs_err": err, "ms": tm["device_ms"],
+            "device_ms": tm["device_ms"], "call_ms": tm["call_ms"],
+            "plain_ms": tm["plain_ms"], "plain_call_ms": tm["plain_call_ms"],
             "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": tm["library_ms"]})
+            "library_ms": tm["library_ms"],
+            "library_call_ms": tm["library_call_ms"]})
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

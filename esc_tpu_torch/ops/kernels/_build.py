@@ -11,6 +11,7 @@ of a kernel, never at import.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -19,8 +20,18 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 __all__ = ["CSRC_DIR", "BUILD_DIR", "nvcc_command", "library_path",
-           "build", "library", "check"]
+           "build", "build_log", "library", "function", "check", "num_sms",
+           "on_device", "stream_of", "MAX_SMEM_PER_BLOCK", "SMEM_PER_SM",
+           "SMEM_RESERVED_PER_BLOCK"]
+
+# an H100 SM: 228 KB of shared memory, of which a block may take 227 KB and
+# the system reserves 1 KB per block
+MAX_SMEM_PER_BLOCK = 232448
+SMEM_PER_SM = 233472
+SMEM_RESERVED_PER_BLOCK = 1024
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC_DIR = _PKG / "csrc"
@@ -30,9 +41,10 @@ GENCODE = "arch=compute_90a,code=sm_90a"
 _vp, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # name: (argtypes, restype)
-    "esc_codebook_argmin": ([_vp, _vp, _vp, _i, _i, _i, _vp], _i),
+    "esc_codebook_argmin": ([_vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i,
+                             _vp], _i),
     "esc_window_attention": ([_vp, _i, _vp, _vp, _i, _vp, _i, _i, _i, _f,
-                              _vp], _i),
+                              _i, _i, _i, _i, _i, _i, _i, _vp], _i),
     "esc_cuda_error_string": ([_i], ctypes.c_char_p),
 }
 
@@ -52,7 +64,7 @@ def _nvcc() -> str:
 
 def nvcc_command(output: Path) -> list[str]:
     return [_nvcc(), "-gencode", GENCODE, "-std=c++17", "-O3", "-shared",
-            "-Xcompiler", "-fPIC", "-o", str(output),
+            "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(output),
             *(str(p) for p in _sources())]
 
 
@@ -64,10 +76,17 @@ def library_path() -> Path:
     return BUILD_DIR / f"libesc_kernels_{digest.hexdigest()[:16]}.so"
 
 
+def _log_path(path: Path) -> Path:
+    return path.with_suffix(".ptxas.txt")
+
+
 def build() -> tuple[Path, bool]:
     """Compile the sources unless the library of their hash exists.
 
     Returns ``(path, built)``; raises with the compiler's output on failure.
+    The compiler's report (``-Xptxas -v``: registers, shared memory and
+    spills of every kernel) is kept beside the library, see
+    :func:`build_log`.
     """
     path = library_path()
     if path.exists():
@@ -79,8 +98,15 @@ def build() -> tuple[Path, bool]:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}"
                            f"{proc.stderr}")
+    _log_path(path).write_text(proc.stdout + proc.stderr)
     os.replace(tmp, path)  # atomic: a concurrent loader sees all or nothing
     return path, True
+
+
+def build_log() -> str:
+    """The ``-Xptxas -v`` report of the library's build ("" if not kept)."""
+    log = _log_path(library_path())
+    return log.read_text() if log.exists() else ""
 
 
 @functools.lru_cache(maxsize=None)
@@ -93,6 +119,30 @@ def library() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = restype
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def function(name: str):
+    """One entry point of the loaded library, resolved once."""
+    return getattr(library(), name)
+
+
+@functools.lru_cache(maxsize=None)
+def num_sms(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def on_device(dev: torch.device):
+    """A context that makes ``dev`` current, entered only when it is not."""
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)
+
+
+def stream_of(dev: torch.device) -> int:
+    """The raw current CUDA stream of ``dev``, for a kernel's launch."""
+    return torch.cuda.current_stream(dev).cuda_stream
 
 
 def check(err: int, what: str) -> None:

@@ -3,16 +3,69 @@
 Port of ``esc_tpu/ops/pallas/vq_kernels.py::codebook_argmin``. For each
 query row: ``argmin_k(|z|^2 - 2 z.c_k + |c_k|^2)`` in fp32, the first index
 on exact ties, code 0 for a row whose distances hold a NaN. The kernel is
-``esc_tpu_torch/csrc/codebook_argmin.cu``.
+``esc_tpu_torch/csrc/codebook_argmin.cu``; its launch plan is
+:func:`launch_plan`, a pure function of the shapes.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 
 from . import _build
 
-__all__ = ["codebook_argmin", "codebook_argmin_plain"]
+__all__ = ["codebook_argmin", "codebook_argmin_plain", "launch_plan",
+           "ArgminPlan"]
+
+MAX_THREADS = 256         # the kernel's __launch_bounds__
+MAX_WARPS = MAX_THREADS // 32
+MAX_ROWS = 8              # rows per block
+SPECIALISED_DIMS = (6, 8, 12, 16, 24, 32)  # the kernel's template widths
+
+
+class ArgminPlan(NamedTuple):
+    """How one call maps onto the card; checked again by the kernel.
+
+    ``grid`` blocks of ``threads`` threads take ``rows`` consecutive query
+    rows each; ``bulk_bytes`` of the codebook arrive by one bulk copy (when
+    the codebook is 16-byte aligned), the rest by plain loads.
+    """
+    rows: int
+    threads: int
+    grid: int
+    smem: int
+    bulk_bytes: int
+
+
+def max_rows(d: int) -> int:
+    """Rows per block a width allows (the kernel keeps ``rows * d`` query
+    values in registers; the generic instance keeps them in shared
+    memory)."""
+    if d not in SPECIALISED_DIMS:
+        return MAX_ROWS
+    return max(1, min(MAX_ROWS, 64 // d))
+
+
+def _round16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+@functools.lru_cache(maxsize=None)
+def launch_plan(N: int, K: int, d: int, num_sms: int) -> ArgminPlan:
+    """The kernel's launch plan for ``N`` rows against a ``(K, d)`` codebook
+    on a card of ``num_sms`` SMs: about ``N / num_sms`` rows per block, so
+    that one wave of blocks covers the card. Raises ``ValueError`` for a
+    codebook that does not fit in a block's shared memory."""
+    rows = min(max_rows(d), max(1, -(-N // num_sms)))
+    threads = min(MAX_THREADS, 32 * -(-K // 32))
+    grid = -(-N // rows)
+    smem = (_round16(K * d * 4) + _round16(rows * d * 4)
+            + MAX_WARPS * MAX_ROWS * 16 + 8)
+    if smem > _build.MAX_SMEM_PER_BLOCK:
+        raise ValueError(f"codebook ({K}, {d}) does not fit in shared memory")
+    return ArgminPlan(rows, threads, grid, smem, K * d * 4 // 16 * 16)
 
 
 def codebook_argmin_plain(z: torch.Tensor, codebook: torch.Tensor
@@ -59,12 +112,15 @@ def codebook_argmin(z: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
                            "torch.no_grad()")
     N, d = z.shape
     K = codebook.shape[0]
-    out = torch.empty(N, dtype=torch.int32, device=z.device)
-    with torch.cuda.device(z.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        _build.check(_build.library().esc_codebook_argmin(
+    dev = z.device
+    plan = launch_plan(N, K, d, _build.num_sms(dev.index))
+    out = torch.empty(N, dtype=torch.int32, device=dev)
+    fn = _build.function("esc_codebook_argmin")
+    with _build.on_device(dev):
+        _build.check(fn(
             z.data_ptr(), codebook.data_ptr(), out.data_ptr(), N, K, d,
-            stream), "codebook_argmin")
+            plan.rows, plan.threads, plan.grid, plan.smem,
+            _build.stream_of(dev)), "codebook_argmin")
     codebook_argmin.launches += 1
     return out
 

@@ -4,23 +4,104 @@ Port of ``esc_tpu/ops/pallas/attention_kernels.py::fused_window_attention``.
 Per window g and head h of the qkv projection ``(G, N, 3C)``:
 ``softmax((q * scale) k^T + bias[h] + mask[g % nW]) v``, with fp32 scores
 and softmax and an fp32 ``(G, N, C)`` output. The kernel is
-``esc_tpu_torch/csrc/window_attention.cu``; it reads q, k and v straight
-from the projection, so no split copies are made.
+``esc_tpu_torch/csrc/window_attention.cu``; it copies whole windows of the
+projection into shared memory, so no split copies are made. Its launch plan
+is :func:`launch_plan`, a pure function of the shapes.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 
 from . import _build
 
-__all__ = ["window_attention", "window_attention_plain", "WINDOW_TOKENS",
-           "MAX_HEAD_DIM"]
+__all__ = ["window_attention", "window_attention_plain", "launch_plan",
+           "AttentionPlan", "WINDOW_TOKENS", "MAX_HEAD_DIM"]
 
 WINDOW_TOKENS = 16  # 4 x 4 windows
 MAX_HEAD_DIM = 32
+MAX_THREADS = 768         # the kernel's __launch_bounds__
+MAX_BULK_BYTES = 1 << 20  # an mbarrier counts fewer transaction bytes
+STAGE_BYTES = 32 * 1024   # aim for one tile's input
+PAIRS_PER_TILE = 12       # aim for (window, head) pairs, one warp each
+REGS_PER_THREAD = 80      # the most __launch_bounds__(768) leaves ptxas
+BIAS_PITCH = WINDOW_TOKENS + 1
+MASK_PITCH = 20
+
+
+class AttentionPlan(NamedTuple):
+    """How one call maps onto the card; checked again by the kernel.
+
+    A tile is ``windows`` consecutive windows; ``grid`` persistent blocks of
+    ``threads`` threads walk the tiles through a ring of ``stages`` input
+    buffers whose rows are ``in_pitch`` bytes apart, each tile's output
+    going through a buffer with rows of ``out_pitch`` floats.
+    """
+    windows: int
+    stages: int
+    threads: int
+    grid: int
+    in_pitch: int
+    out_pitch: int
+    smem: int
+    tiles: int
+    row_bytes: int
+
+
+def _smem(windows: int, stages: int, in_pitch: int, out_pitch: int,
+          nh: int, masked: bool) -> int:
+    # the kernel's smem_bytes: input ring, mask ring, two output buffers,
+    # padded bias, one mbarrier per stage
+    n = WINDOW_TOKENS
+    mask = windows * n * MASK_PITCH * 4 if masked else 0
+    return (stages * (windows * n * in_pitch + mask)
+            + 2 * windows * n * out_pitch * 4 + nh * n * BIAS_PITCH * 4
+            + 8 * stages)
+
+
+@functools.lru_cache(maxsize=None)
+def launch_plan(G: int, nh: int, hd: int, bf16: bool, masked: bool,
+                num_sms: int) -> AttentionPlan:
+    """The kernel's launch plan for ``G`` windows of ``nh`` heads of width
+    ``hd`` (with a mask or not) on a card of ``num_sms`` SMs.
+
+    A row of 3C elements that spans a multiple of 128 bytes is padded by 16
+    bytes in shared memory (and then copied row by row), so that rows start
+    on different banks; so are output rows of a multiple of 8 floats,
+    padded by 4 floats (and then stored row by row). A tile holds about
+    :data:`PAIRS_PER_TILE` (window, head) pairs and at most
+    :data:`STAGE_BYTES` of input where a window allows; two stages where
+    shared memory allows, else one. Raises ``ValueError`` for a width whose
+    single window does not fit.
+    """
+    n = WINDOW_TOKENS
+    C = nh * hd
+    row_bytes = 3 * C * (2 if bf16 else 4)
+    in_pitch = row_bytes + 16 if row_bytes % 128 == 0 else row_bytes
+    out_pitch = C + 4 if C % 8 == 0 else C
+    windows = max(1, min(PAIRS_PER_TILE // nh, G))
+    while windows > 1 and windows * n * in_pitch > STAGE_BYTES:
+        windows -= 1
+    candidates = [(w, 2) for w in range(windows, 0, -1)] + [(1, 1)]
+    for windows, stages in candidates:
+        smem = _smem(windows, stages, in_pitch, out_pitch, nh, masked)
+        if (smem <= _build.MAX_SMEM_PER_BLOCK
+                and windows * n * (row_bytes + n * 4) < MAX_BULK_BYTES):
+            break
+    else:
+        raise ValueError(f"window attention: {nh} heads x {hd} channels "
+                         "need more shared memory than a block has")
+    threads = 32 * min(windows * nh, MAX_THREADS // 32)
+    per_sm = min(_build.SMEM_PER_SM
+                 // (smem + _build.SMEM_RESERVED_PER_BLOCK),
+                 2048 // threads, 65536 // (threads * REGS_PER_THREAD))
+    tiles = -(-G // windows)
+    grid = min(tiles, num_sms * max(1, per_sm))
+    return AttentionPlan(windows, stages, threads, grid, in_pitch, out_pitch,
+                         smem, tiles, row_bytes)
 
 
 def window_attention_plain(qkv: torch.Tensor, bias: torch.Tensor,
@@ -89,18 +170,25 @@ def window_attention(qkv: torch.Tensor, bias: torch.Tensor,
     if not (qkv.is_contiguous() and bias.is_contiguous()
             and (mask is None or mask.is_contiguous())):
         raise ValueError("qkv, bias and mask must be contiguous")
+    if qkv.data_ptr() % 16 or (mask is not None and mask.data_ptr() % 16):
+        raise ValueError("qkv and mask must start on a 16-byte boundary: "
+                         "the kernel copies them with bulk copies")
     if torch.is_grad_enabled() and qkv.requires_grad:
         raise RuntimeError("window_attention has no backward: call it under "
                            "torch.no_grad()")
+    bf16 = qkv.dtype == torch.bfloat16
+    plan = launch_plan(G, nh, hd, bf16, mask is not None,
+                       _build.num_sms(dev.index))
     out = torch.empty((G, N, C), dtype=torch.float32, device=dev)
-    lib = _build.library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        _build.check(lib.esc_window_attention(
-            qkv.data_ptr(), int(qkv.dtype == torch.bfloat16), bias.data_ptr(),
+    fn = _build.function("esc_window_attention")
+    with _build.on_device(dev):
+        _build.check(fn(
+            qkv.data_ptr(), int(bf16), bias.data_ptr(),
             mask.data_ptr() if mask is not None else None,
             mask.shape[0] if mask is not None else 0, out.data_ptr(), G, nh,
-            hd, float(scale), stream), "window_attention")
+            hd, float(scale), plan.windows, plan.stages, plan.threads,
+            plan.grid, plan.in_pitch, plan.out_pitch, plan.smem,
+            _build.stream_of(dev)), "window_attention")
     window_attention.launches += 1
     return out
 

@@ -58,6 +58,42 @@ def test_argmin_kernel_matches_plain(rng, cuda, d):
     assert bool(((ours == plain) | near_tie).all())
 
 
+def _near_tie(z, cb):
+    """Rows whose two nearest codewords lie within 1e-5 (float64): only
+    these may flip with the order of the fp32 sums."""
+    dist = torch.cdist(z.double(), cb.double()) ** 2
+    if cb.shape[0] < 2:
+        return torch.zeros(z.shape[0], dtype=torch.bool, device=z.device)
+    two = dist.topk(2, largest=False).values
+    return (two[:, 1] - two[:, 0]) <= 1e-5
+
+
+@pytest.mark.parametrize("d", list(range(6, 33)))
+@pytest.mark.parametrize("K", [128, 1024])
+@pytest.mark.parametrize("N", [1, 7, 4801])
+def test_argmin_kernel_shapes(rng, cuda, N, K, d):
+    z, cb = _normed(rng, (N, d), cuda), _normed(rng, (K, d), cuda)
+    ours = codebook_argmin(z, cb)
+    plain = codebook_argmin_plain(z, cb)
+    assert bool(((ours == plain) | _near_tie(z, cb)).all())
+
+
+@pytest.mark.parametrize("K,d", [(7, 6), (1024, 8), (129, 9)])
+def test_argmin_kernel_unaligned_codebook(rng, cuda, K, d):
+    # a codebook whose bytes are not a multiple of 16, and one that starts
+    # 4 bytes past a 16-byte boundary: the kernel copies what a bulk copy
+    # cannot with plain loads
+    z = _normed(rng, (600, d), cuda)
+    flat = torch.zeros(K * d + 1, device=cuda)
+    cb = flat[1:].view(K, d)
+    cb.copy_(_normed(rng, (K, d), cuda))
+    assert cb.data_ptr() % 16 != 0
+    ours = codebook_argmin(z, cb)
+    assert torch.equal(ours, codebook_argmin(z, cb.clone()))
+    assert bool(((ours == codebook_argmin_plain(z, cb))
+                 | _near_tie(z, cb)).all())
+
+
 def test_argmin_kernel_ties_and_nan(rng, cuda):
     cb = torch.tensor(rng.standard_normal((1024, 8)), dtype=torch.float32,
                       device=cuda)
@@ -101,6 +137,47 @@ def test_attention_kernel_matches_plain(rng, cuda, nh, hd, masked, dtype):
     torch.testing.assert_close(
         ours, window_attention_plain(qkv, bias, mask, nh, hd ** -0.5),
         atol=tol, rtol=1e-5 if dtype == torch.float32 else 5e-2)
+
+
+# every window-attention geometry of ESC-Base serving (4 clips of 3 s,
+# num_streams 1-6), then G that is no multiple of a grid or of the windows
+# per tile
+MAIN_PATH_ATTENTION = [(4800, 3, 15), (2400, 6, 12), (1200, 12, 8),
+                       (600, 24, 6), (300, 24, 8), (300, 24, 16),
+                       (600, 12, 12), (1200, 6, 16), (2400, 3, 24)]
+RAGGED = [(1, 3, 15), (7, 6, 12), (301, 24, 16), (301, 3, 24), (7, 5, 7)]
+
+
+@pytest.mark.parametrize("G,nh,hd", MAIN_PATH_ATTENTION + RAGGED)
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_kernel_geometries(rng, cuda, G, nh, hd, masked, dtype):
+    C = nh * hd
+    qkv = torch.tensor(rng.standard_normal((G, 16, 3 * C)),
+                       dtype=torch.float32, device=cuda).to(dtype)
+    bias = torch.tensor(rng.standard_normal((nh, 16, 16)),
+                        dtype=torch.float32, device=cuda)
+    mask = None
+    if masked:
+        nW = G // 4 if G % 4 == 0 else G
+        mask = torch.tensor(np.where(rng.random((nW, 16, 16)) > 0.5, 0.0,
+                                     -100.0), dtype=torch.float32,
+                            device=cuda)
+    ours = window_attention(qkv, bias, mask, nh, hd ** -0.5)
+    tol = 2e-5 if dtype == torch.float32 else 5e-2
+    torch.testing.assert_close(
+        ours, window_attention_plain(qkv, bias, mask, nh, hd ** -0.5),
+        atol=tol, rtol=1e-5 if dtype == torch.float32 else 5e-2)
+
+
+def test_attention_refuses_a_misaligned_qkv(cuda):
+    G, nh, hd = 4, 3, 15
+    flat = torch.zeros(G * 16 * 3 * nh * hd + 1, device=cuda)
+    qkv = flat[1:].view(G, 16, 3 * nh * hd)
+    assert qkv.is_contiguous() and qkv.data_ptr() % 16 != 0
+    with pytest.raises(ValueError):
+        window_attention(qkv, torch.zeros(nh, 16, 16, device=cuda), None, nh,
+                         1.0)
 
 
 def test_model_on_kernels_matches_plain_model(rng, cuda):
