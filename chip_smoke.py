@@ -6,20 +6,35 @@
 Phases, each ending with one line that carries its seconds:
 
 0. card     the card's name and power limit (nvidia-smi), torch and CUDA
-1. build    nvcc builds esc_tpu_torch/csrc/*.cu for sm_90a (first use)
+1. build    nvcc builds esc_tpu_torch/csrc/*.cu for sm_90a (first use), one
+            process per source; the host compiler builds the range coder
 2. kernels  each CUDA kernel against its plain PyTorch version, on the
-            card, at the shapes ESC-Base serving gives it (4 clips of 3 s);
-            call time (CUDA events around the Python calls, host work
-            included) of the kernel, its plain version and one library
-            call
+            card, at the shapes ESC-Base serving gives it (4 clips of 3 s;
+            the 25 s file of phase 3c whole and in its chunks) and at widths
+            beyond them (heads split into groups, codebooks in K-tiles);
+            call time (CUDA events around the Python calls,
+            host work included) of the kernel, its plain version and one
+            library call
 3. main     ESC-Base at full width (random weights from seed 0): encode ->
             decode and roundtrip at num_streams 1, 3 and 6 and the compress
             CLI on one generated wav, with the kernels' launch counts; then
             the same model on the plain versions, codes and waveforms
             compared; the real-time factor
+3b. bf16    the same ESC-Base in the bf16 serving mode at num_streams 1, 3
+            and 6: codes against fp32's, the real-time factor beside fp32's
+3c. cli     python -m esc_tpu_torch.cli.compress as a subprocess on a 25 s
+            wav, with configs/9kbps_esc_base.yaml and a model.pth: once
+            plain, once with --dtype bfloat16 --chunk_seconds 10; every
+            .escb unpacks to its .npy codes; the whole-file and the chunked
+            fp32 paths against the plain versions
+3d. serving stream_roundtrip over 8 batches at depth 2 against the serial
+            loop
 4. profile  device time by kernel over one roundtrip (torch.profiler), then
             each kernel's, its plain version's and the library call's
             device time at the shapes of phase 2
+
+Each path of phases 3-3d is driven with the launch counts set to 0 just
+before it and read just after; every kernel must have run in it.
 
 The second-to-last line is the kernels' JSON summary, the last
 {"ok": true, "device": {...}}. Any failed check raises: the script then
@@ -35,10 +50,12 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -63,6 +80,22 @@ ATTN_TOL = {torch.float32: (2e-5, 1e-5), torch.bfloat16: (5e-2, 5e-2)}
 NEAR_TIE = 1e-5            # float64 gap of the two nearest codewords
 # window counts that are no multiple of a grid or of the windows per tile
 ATTN_RAGGED = [(1, 3, 15), (7, 6, 12), (301, 24, 16), (301, 3, 24)]
+# widths beyond ESC-Base's: heads split into groups (one window of all
+# heads over a block's shared memory, or heads wider than 32)
+ATTN_WIDE = [(300, 24, 32), (300, 16, 64), (300, 8, 128), (7, 8, 128),
+             (301, 5, 40), (50, 7, 128)]
+# codebooks over a block's shared memory stream through it in K-tiles
+ARGMIN_WIDE = [(600, 1024, 64), (600, 1024, 128), (600, 1024, 256),
+               (4801, 4096, 8), (601, 1023, 65)]
+# the shapes of the widths' timing (phase 4)
+ATTN_WIDE_TIMED = (300, 16, 64)
+ARGMIN_WIDE_TIMED = (600, 1024, 64)
+BF16_AGREE_MIN = 0.8        # tests/test_bf16_mode.py's bar
+PAIRS = 3                   # timed pairs of two variants, order alternating
+CLI_SECONDS = 25
+CLI_CHUNK_SECONDS = 10
+STREAM_BATCHES, STREAM_DEPTH = 8, 2
+ROOT = Path(__file__).resolve().parent
 
 
 def phase(name: str, t0: float, msg: str = "") -> float:
@@ -194,6 +227,38 @@ def main_path_calls(cfg: dict, batch: int, length: int, num_streams: int):
     return argmin, attn
 
 
+def chunk_lengths(cfg: dict, length: int, chunk_seconds: float,
+                  margin_seconds: float = 1.0) -> list:
+    """Sample lengths of the segments ``ESC.encode_chunked`` and
+    ``decode_chunked`` hand the model for a file of ``length`` samples:
+    chunks and margins in code frames, both multiples of ``window_size //
+    overlap`` (``esc_tpu_torch/models/codecs.py``, ``ESC._chunking``)."""
+    hop = int(cfg["hop_len"] * cfg["sr"] * 1e-3)
+    spc = hop * cfg["patch_size"][1] * cfg["overlap"]
+    align = max(1, cfg["window_size"] // cfg["overlap"])
+    chunk = max(align, int(chunk_seconds * cfg["sr"]) // spc // align * align)
+    margin = max(align, -(-int(margin_seconds * cfg["sr"]) // spc)
+                 // align * align)
+    total = (length // hop + 1) // cfg["patch_size"][1] // cfg["overlap"]
+    if total <= chunk:
+        return [length]
+    return [(min(total, s + chunk + margin) - max(0, s - margin)) * spc
+            for s in range(0, total, chunk)]
+
+
+def cli_calls(cfg: dict):
+    """The kernel calls of phase 3c's paths on its 25 s file at num_streams
+    6, as :func:`main_path_calls` gives them: those of the whole file (the
+    fp32 CLI) and those of all its chunks (the chunked path)."""
+    L = CLI_SECONDS * cfg["sr"]
+    argmin, attn = [], []
+    for n in chunk_lengths(cfg, L, CLI_CHUNK_SECONDS):
+        a, t = main_path_calls(cfg, 1, n, 6)
+        argmin += a
+        attn += t
+    return main_path_calls(cfg, 1, L, 6), (argmin, attn)
+
+
 def _count(calls):
     out = {}
     for c in calls:
@@ -202,8 +267,9 @@ def _count(calls):
 
 
 # ------------------------------------------------------------- phase 2
-def check_argmin(kern, rng, dev):
-    """Exact codes but for near ties; returns the entry's numbers."""
+def check_argmin(kern, rng, dev, extra=()):
+    """Exact codes but for near ties, at the shapes below and ``extra``;
+    returns the largest distance error."""
     wrapper, plain = kern["codebook_argmin"]
     excused = checked = 0
     max_err = 0.0
@@ -214,6 +280,7 @@ def check_argmin(kern, rng, dev):
     cases = [(600, 1024, 8)] + [(1200, 1024, d) for d in (6, 8, 12, 16, 32)]
     cases += [(N, K, d) for N in (1, 7, 4801) for K in (128, 1024)
               for d in range(6, 33)]
+    cases += ARGMIN_WIDE + sorted(set(extra))
     for N, K, d in cases:
         z = torch.tensor(normed(rng.standard_normal((N, d))),
                          dtype=torch.float32, device=dev)
@@ -246,17 +313,18 @@ def check_argmin(kern, rng, dev):
     if not torch.equal(nan, plain(z, cb)) or nan[0] != 0 or nan[4] != 0:
         raise RuntimeError(f"codebook_argmin all-NaN rows gave {nan.tolist()}")
     print(f"  codebook_argmin: {checked} rows in {len(cases)} shapes (N 1 "
-          f"to 4801, K 128 and 1024, d 6..32): "
+          f"to 4801, K 128 to 4096, d 6..32, K-tiled {ARGMIN_WIDE}, and "
+          f"the 25 s file's {sorted(set(extra))}): "
           f"{excused} differ, all near ties (float64 gap <= {NEAR_TIE}); "
           f"duplicate rows -> {dup}; all-NaN rows -> 0; max |dist diff| "
           f"{max_err:.3g}", flush=True)
     return max_err
 
 
-def attention_inputs(rng, dev, G, nh, hd, masked, dtype):
-    """Random qkv and bias; the mask has one entry per window of a clip,
-    as the SW-MSA mask of the main path."""
-    C, nW = nh * hd, (G // BATCH if G % BATCH == 0 else G)
+def attention_inputs(rng, dev, G, nh, hd, masked, dtype, batch=BATCH):
+    """Random qkv and bias; the mask has one entry per window of a clip of
+    ``batch`` clips, as the SW-MSA mask of the main path."""
+    C, nW = nh * hd, (G // batch if G % batch == 0 else G)
     qkv = torch.tensor(rng.standard_normal((G, 16, 3 * C)),
                        dtype=torch.float32, device=dev).to(dtype)
     bias = torch.tensor(rng.standard_normal((nh, 16, 16)),
@@ -268,14 +336,14 @@ def attention_inputs(rng, dev, G, nh, hd, masked, dtype):
     return qkv, bias, mask
 
 
-def check_attention(kern, rng, dev, shapes):
+def check_attention(kern, rng, dev, shapes, batch=BATCH):
     wrapper, plain = kern["window_attention"]
     max_err = {torch.float32: 0.0, torch.bfloat16: 0.0}
     for G, nh, hd in shapes:
         for masked in (False, True):
             for dtype in (torch.float32, torch.bfloat16):
                 qkv, bias, mask = attention_inputs(rng, dev, G, nh, hd,
-                                                   masked, dtype)
+                                                   masked, dtype, batch)
                 ours = wrapper(qkv, bias, mask, nh, hd ** -0.5)
                 ref = plain(qkv, bias, mask, nh, hd ** -0.5)
                 atol, rtol = ATTN_TOL[dtype]
@@ -285,8 +353,8 @@ def check_attention(kern, rng, dev, shapes):
                                   f"masked={masked} {dtype}: {m}")
                 max_err[dtype] = max(max_err[dtype],
                                      float((ours - ref).abs().max()))
-    print(f"  window_attention: {len(shapes)} geometries (G 1 to 4800) x "
-          f"masked/unmasked "
+    print(f"  window_attention: {len(shapes)} geometries ({shapes[0]} .. "
+          f"{shapes[-1]}, batch {batch}) x masked/unmasked "
           f"x f32/bf16 agree; max abs err f32 "
           f"{max_err[torch.float32]:.3g} (atol 2e-5), bf16 "
           f"{max_err[torch.bfloat16]:.3g} (atol 5e-2)", flush=True)
@@ -355,7 +423,281 @@ def time_attention(kern, rng, dev, calls, clock):
     return tot
 
 
+def time_wide(kern, rng, dev) -> dict:
+    """Device ms of each kernel, its plain version and the library call at
+    one width beyond ESC-Base's (heads in groups; a K-tiled codebook)."""
+    out = {}
+    G, nh, hd = ATTN_WIDE_TIMED
+    wrapper, plain = kern["window_attention"]
+    qkv, bias, mask = attention_inputs(rng, dev, G, nh, hd, True,
+                                       torch.float32)
+    scale = hd ** -0.5
+    q, k, v = qkv.reshape(G, 16, 3, nh, hd).permute(2, 0, 3, 1,
+                                                    4).contiguous()
+    nW = mask.shape[0]
+    full = (bias[None].expand(G, nh, 16, 16).reshape(G // nW, nW, nh, 16, 16)
+            + mask[None, :, None]).reshape(G, nh, 16, 16).contiguous()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    nbytes = 4 * (G * 16 * 4 * nh * hd + nh * 256 + nW * 256)
+    flops = G * nh * (4 * 256 * hd + 5 * 256)
+    out["window_attention"] = {
+        "shape": f"G {G} nh {nh} hd {hd} masked f32",
+        "ms": device_ms(lambda: wrapper(qkv, bias, mask, nh, scale),
+                        "window_attention_grouped_kernel"),
+        "plain_ms": device_ms(lambda: plain(qkv, bias, mask, nh, scale)),
+        "library_ms": device_ms(lambda: sdpa(q, k, v, attn_mask=full,
+                                             scale=scale)),
+        "bound_ms": bound_ms(nbytes, flops)[0]}
+    N, K, d = ARGMIN_WIDE_TIMED
+    wrapper, plain = kern["codebook_argmin"]
+    z = torch.nn.functional.normalize(torch.randn(N, d, device=dev), dim=1)
+    cb = torch.nn.functional.normalize(torch.randn(K, d, device=dev), dim=1)
+    out["codebook_argmin"] = {
+        "shape": f"N {N} K {K} d {d} (K-tiled)",
+        "ms": device_ms(lambda: wrapper(z, cb),
+                        "codebook_argmin_tiled_kernel"),
+        "plain_ms": device_ms(lambda: plain(z, cb)),
+        "library_ms": device_ms(lambda: torch.cdist(z, cb).argmin(1)),
+        "bound_ms": bound_ms(4 * (N * d + K * d + N),
+                             2 * N * K * d + 3 * N * K)[0]}
+    for name, tm in out.items():
+        print(f"  {name} at {tm['shape']}: device ms: kernel {tm['ms']:.4f},"
+              f" plain {tm['plain_ms']:.4f}, library {tm['library_ms']:.4f},"
+              f" bound {tm['bound_ms']:.4f}", flush=True)
+    return out
+
+
 # ------------------------------------------------------------- phase 3
+def counted(kern, what: str, fn):
+    """Run ``fn`` with every launch count set to 0 just before and read
+    just after; raise unless every kernel ran. Returns (result, counts)."""
+    for wrapper, _ in kern.values():
+        wrapper.launches = 0
+    result = fn()
+    torch.cuda.synchronize()
+    counts = {name: wrapper.launches for name, (wrapper, _) in kern.items()}
+    print(f"  launches on {what}: {counts}", flush=True)
+    if min(counts.values()) == 0:
+        raise RuntimeError(f"a kernel never ran on {what}: {counts}")
+    return result, counts
+
+
+def real_time_factor(model, x, reps: int = 10) -> float:
+    """Audio seconds per wall second of ``roundtrip`` at num_streams 6."""
+    model.roundtrip(x, num_streams=6)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(reps):
+        model.roundtrip(x, num_streams=6)
+    torch.cuda.synchronize()
+    return x.shape[0] * x.shape[1] / ESC_BASE["sr"] / (
+        (time.perf_counter() - start) / reps)
+
+
+def check_bf16(kern, model, x, out):
+    """Phase 3b: ESC-Base in bf16 at num_streams 1, 3, 6 against the fp32
+    codes of phase 3; the real-time factors side by side."""
+    from esc_tpu_torch.models import make_model
+
+    model16 = make_model(ESC_BASE, seed=SEED, device=x.device,
+                         dtype=torch.bfloat16)
+    if {p.dtype for p in model16.module.parameters()} != {torch.float32}:
+        raise RuntimeError("bf16 mode: parameters are not float32")
+    model16.roundtrip(x, num_streams=6)            # warm-up, not counted
+
+    def drive():
+        res = {}
+        for ns in STREAMS:
+            codes, fs = model16.encode(x, num_streams=ns)
+            res[ns] = (codes, fs, model16.decode(codes, fs))
+        return res
+
+    res, _ = counted(kern, "the bf16 path", drive)
+    agree = {}
+    for ns, (codes, fs, recon) in res.items():
+        agree[ns] = float((codes == out[ns][0]).float().mean())
+        if tuple(fs) != tuple(out[ns][1]) or agree[ns] < BF16_AGREE_MIN:
+            raise RuntimeError(f"bf16 ns={ns}: codes agree with fp32 on "
+                               f"{agree[ns]:.2%} (< {BF16_AGREE_MIN:.0%})")
+        if recon.dtype != torch.float32 or tuple(recon.shape) != tuple(
+                x.shape) or not bool(torch.isfinite(recon).all()):
+            raise RuntimeError(f"bf16 ns={ns}: waveform {recon.dtype} "
+                               f"{tuple(recon.shape)} misshaped or not "
+                               "finite")
+    rtf = paired({"fp32": lambda: real_time_factor(model, x),
+                  "bf16": lambda: real_time_factor(model16, x)})
+    print(f"  bf16 codes agree with fp32: " + ", ".join(
+        f"ns={ns} {a:.2%}" for ns, a in agree.items())
+        + f" (>= {BF16_AGREE_MIN:.0%}); waveforms finite; real-time factor "
+        f"bf16 {rtf['bf16']}, fp32 {rtf['fp32']} (pairs, order "
+        "alternating)", flush=True)
+    return agree, rtf
+
+
+def paired(variants: dict) -> dict:
+    """Each variant's number from :data:`PAIRS` rounds, the variants'
+    order reversed every other round: name -> list of numbers."""
+    out = {name: [] for name in variants}
+    names = list(variants)
+    for i in range(PAIRS):
+        for name in (names if i % 2 == 0 else names[::-1]):
+            out[name].append(round(variants[name](), 1))
+    return out
+
+
+def run_cli(args, tmp):
+    """``python -m esc_tpu_torch.cli.compress`` in a subprocess; returns
+    (its standard output, its wall seconds)."""
+    start = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "esc_tpu_torch.cli.compress",
+                           *args], cwd=ROOT, capture_output=True, text=True,
+                          timeout=600)
+    wall = time.perf_counter() - start
+    if proc.returncode != 0:
+        raise RuntimeError(f"compress CLI {args} exited {proc.returncode}:\n"
+                           f"{proc.stdout}{proc.stderr}")
+    return proc.stdout, wall
+
+
+def check_cli(kern, dev, rng, tmp, chunked_calls):
+    """Phase 3c: the compress CLI as a user runs it, twice, on a model
+    directory holding config.yaml and a model.pth; then the whole-file and
+    the chunked fp32 paths against the plain versions, and the chunked
+    bf16 path's launches against ``chunked_calls`` (:func:`cli_calls`)."""
+    from esc_tpu_torch.cli.bitstream import unpack_codes
+    from esc_tpu_torch.cli.compress import compress_file, load_model
+    from esc_tpu_torch.io import load_wav, save_wav
+    from esc_tpu_torch.models import make_model
+    from esc_tpu_torch.utils.config import read_yaml
+
+    model_dir = Path(tmp) / "esc_base"
+    model_dir.mkdir()
+    shutil.copy(ROOT / "configs" / "9kbps_esc_base.yaml",
+                model_dir / "config.yaml")
+    cfg = read_yaml(str(model_dir / "config.yaml"))
+    src = make_model(cfg["model"], cfg["model_name"], seed=SEED + 1,
+                     device="cpu")
+    torch.save(src.state_dict(), model_dir / "model.pth")
+    wav = Path(tmp) / "long.wav"
+    L = CLI_SECONDS * ESC_BASE["sr"]
+    save_wav(str(wav), (0.1 * rng.standard_normal(L)).astype(np.float32))
+    runs = {"fp32": [], "bf16 chunked": ["--dtype", "bfloat16",
+                                         "--chunk_seconds",
+                                         str(CLI_CHUNK_SECONDS)]}
+    results = {}
+    for label, extra in runs.items():
+        out_dir = Path(tmp) / label.replace(" ", "_")
+        said, wall = run_cli(["--input", str(wav), "--model_path",
+                              str(model_dir), "--save_path", str(out_dir),
+                              "--num_streams", "6", *extra], tmp)
+        if "model.pth" not in said:
+            raise RuntimeError(f"compress CLI ({label}) did not load "
+                               f"model.pth:\n{said}")
+        npy = np.load(out_dir / "encoded_9.0kbps_long.npy")
+        blob = (out_dir / "encoded_9.0kbps_long.escb").read_bytes()
+        codes, fs = unpack_codes(blob)
+        recon = load_wav(str(out_dir / "decoded_9.0kbps_long.wav"))
+        if not np.array_equal(codes, npy) or not np.isfinite(recon).all():
+            raise RuntimeError(f"compress CLI ({label}): .escb codes differ "
+                               "from the .npy, or the wav is not finite")
+        results[label] = (codes, fs, recon, wall, blob[4])
+        print(f"  compress CLI {label}: {wall:.2f} s for {CLI_SECONDS} s of "
+              f"audio (process start included); .escb v{blob[4]} "
+              f"{len(blob)} B unpacks to the .npy codes {codes.shape}, "
+              f"feat_shape {fs}, wav {recon.shape}", flush=True)
+    (c32, fs32, r32, _, _), (c16, fs16, r16, _, _) = results.values()
+    agree = float((c32 == c16).mean())
+    if fs32 != fs16 or r32.shape != r16.shape or agree < BF16_AGREE_MIN:
+        raise RuntimeError(f"compress CLI: bf16 chunked codes agree with "
+                           f"fp32 on {agree:.2%}, shapes {fs16} {r16.shape}")
+    # the whole file and its chunks in fp32, on the kernels and on the
+    # plain versions, in this process
+    x = load_wav(str(wav))[None]
+    model = load_model(str(model_dir), device=dev)
+    plain = make_model(cfg["model"], cfg["model_name"], device=dev,
+                       plain_ops=True)
+    plain.load_state_dict(src.state_dict())
+    whole_plain, _ = plain.encode(x, num_streams=6)
+    mismatch = {"whole": float((whole_plain.cpu().numpy() != c32).mean())}
+    chunk = model.encode_chunked(x, 6, CLI_CHUNK_SECONDS)
+    chunk_plain, _ = plain.encode_chunked(x, 6, CLI_CHUNK_SECONDS)
+    mismatch["chunked"] = float((chunk[0] != chunk_plain).float().mean())
+    wave_err = float((model.decode_chunked(*chunk, CLI_CHUNK_SECONDS)
+                      - plain.decode_chunked(*chunk, CLI_CHUNK_SECONDS))
+                     .abs().max())
+    if max(mismatch.values()) > CODE_MISMATCH_MAX or wave_err > WAVE_ATOL:
+        raise RuntimeError(f"compress CLI: fp32 codes differ from the plain "
+                           f"versions' on {mismatch}, or the chunked decode "
+                           f"by {wave_err:.3g}")
+    # the chunked bf16 path with the launch counts
+    model16 = load_model(str(model_dir), device=dev, dtype="bfloat16")
+    compress_file(model16, str(wav), str(Path(tmp) / "warm"), 6,
+                  CLI_CHUNK_SECONDS)                # warm-up, not counted
+    start = time.perf_counter()
+    _, launches = counted(kern, "the chunked bf16 compress path",
+                          lambda: compress_file(model16, str(wav),
+                                                str(Path(tmp) / "in"), 6,
+                                                CLI_CHUNK_SECONDS))
+    per_s = (time.perf_counter() - start) / CLI_SECONDS
+    want = {"codebook_argmin": len(chunked_calls[0]),
+            "window_attention": len(chunked_calls[1])}
+    if launches != want:
+        raise RuntimeError(f"chunked bf16 path: launches {launches}, the "
+                           f"chunks phase 2 checked give {want}")
+    print(f"  compress CLI: bf16 chunked codes agree with fp32 whole-file "
+          f"on {agree:.2%}; fp32 codes against the plain versions: whole "
+          f"file (CLI) {mismatch['whole']:.4%}, chunked "
+          f"{mismatch['chunked']:.4%} differ (<= 0.2%), chunked decode of "
+          f"the same codes within {wave_err:.3g} (<= 5e-4); chunked bf16 "
+          f"launches {launches} as phase 2's chunk shapes predict; "
+          f"compress_file in process {per_s * 1e3:.2f} ms per audio second",
+          flush=True)
+    return {"cli_s": {k: v[3] for k, v in results.items()},
+            "bf16_chunked_ms_per_audio_s": per_s * 1e3,
+            "agree": agree, "escb_version": {k: v[4] for k, v in
+                                             results.items()}}
+
+
+def check_serving(kern, model, rng):
+    """Phase 3d: stream_roundtrip at depth 2 against the serial loop."""
+    from esc_tpu_torch.serving import stream_roundtrip
+
+    batches = [(0.1 * rng.standard_normal((BATCH, CLIP))).astype(np.float32)
+               for _ in range(STREAM_BATCHES)]
+    list(stream_roundtrip(model, batches[:2], depth=STREAM_DEPTH))  # warm-up
+    outs, _ = counted(kern, "stream_roundtrip", lambda: list(
+        stream_roundtrip(model, batches, num_streams=6,
+                         depth=STREAM_DEPTH)))
+
+    def serial_loop():
+        out = []
+        for x in batches:
+            codes, _, recon = model.roundtrip(x, num_streams=6)
+            out.append((codes.cpu().numpy(), recon.cpu().numpy()))
+        return out
+
+    for i, ((c, r), (sc, sr)) in enumerate(zip(outs, serial_loop())):
+        if not (np.array_equal(c, sc) and np.array_equal(r, sr)):
+            raise RuntimeError(f"stream_roundtrip batch {i} differs from the "
+                               "serial loop")
+    audio_s = STREAM_BATCHES * BATCH * CLIP / ESC_BASE["sr"]
+
+    def rtf(fn):
+        start = time.perf_counter()
+        fn()
+        return audio_s / (time.perf_counter() - start)
+
+    rtfs = paired({
+        "pipelined": lambda: rtf(lambda: list(stream_roundtrip(
+            model, batches, num_streams=6, depth=STREAM_DEPTH))),
+        "serial": lambda: rtf(serial_loop)})
+    print(f"  stream_roundtrip: {STREAM_BATCHES} batches of {BATCH} x 3 s at "
+          f"depth {STREAM_DEPTH} equal the serial loop; real-time factor "
+          f"pipelined {rtfs['pipelined']}, serial {rtfs['serial']} (pairs, "
+          "order alternating; results on the host)", flush=True)
+    return rtfs
+
+
 def drive_main_path(model, x, compress_file, tmp):
     """The main path as a user drives it; returns what it produced."""
     out = {}
@@ -464,25 +806,38 @@ def main() -> int:
     from esc_tpu_torch.io import save_wav
     from esc_tpu_torch.models import make_model
     from esc_tpu_torch.ops.kernels import KERNELS, _build
+    from esc_tpu_torch.utils.config import read_yaml
 
-    print("  " + " ".join(_build.nvcc_command(_build.library_path())),
-          flush=True)
+    from esc_tpu_torch import rangecoder
+
+    compiles, link = _build.nvcc_commands(_build.library_path())
+    for cmd in compiles + [link]:
+        print("  " + " ".join(cmd), flush=True)
     path, built = _build.build()
     _build.library()
+    rc_path, rc_built = rangecoder.build()
     for line in _build.build_log().splitlines():
         if any(w in line for w in ("Compiling entry", "registers", "spill")):
             print("  ptxas: " + line.strip().removeprefix("ptxas info    :")
                   .strip(), flush=True)
     t0 = phase("1 build", t0, f"{'built' if built else 'found'} "
-               f"{os.path.relpath(path)}")
+               f"{os.path.relpath(path)}; range coder "
+               f"{'built' if rc_built else 'found'} "
+               f"{os.path.relpath(rc_path)}")
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
     argmin_calls, attn_calls = main_path_calls(ESC_BASE, BATCH, CLIP, 6)
     attn_shapes = sorted({(G, nh, hd) for G, nh, hd, _ in attn_calls})
-    argmin_err = check_argmin(KERNELS, rng, dev)
+    # phase 3c's 25 s file: its whole-file and chunked calls, batch 1
+    whole, chunked = cli_calls(read_yaml(str(
+        ROOT / "configs" / "9kbps_esc_base.yaml"))["model"])
+    argmin_err = check_argmin(KERNELS, rng, dev, whole[0] + chunked[0])
     attn_err = check_attention(KERNELS, rng, dev,
-                               attn_shapes + ATTN_RAGGED)
+                               attn_shapes + ATTN_RAGGED + ATTN_WIDE)
+    attn_err = max(attn_err, check_attention(
+        KERNELS, rng, dev, sorted({(G, nh, hd) for G, nh, hd, _ in
+                                   whole[1] + chunked[1]}), batch=1))
     # call times here, device times in phase 4: a profiler session slows
     # the host's later launches, which would show in phase 3
     timing = time_kernels(KERNELS, rng, dev, "call")
@@ -534,6 +889,16 @@ def main() -> int:
     t0 = phase("3 main", t0, f"ESC-Base serving ok, real-time factor "
                f"{rtf['kernels']:.1f} (plain {rtf['plain']:.1f})")
 
+    xd = x.to(dev)
+    bf16_agree, bf16_rtf = check_bf16(KERNELS, model, xd, out)
+    t0 = phase("3b bf16", t0, f"bf16 serving ok, real-time factor "
+               f"{bf16_rtf['bf16']} (fp32 {bf16_rtf['fp32']})")
+    with tempfile.TemporaryDirectory() as tmp:
+        cli_run = check_cli(KERNELS, dev, rng, tmp, chunked)
+    t0 = phase("3c cli", t0, "the compress CLI ok, fp32 and bf16 chunked")
+    serving = check_serving(KERNELS, model, rng)
+    t0 = phase("3d serving", t0, "stream_roundtrip ok")
+
     from torch.profiler import ProfilerActivity, profile
     model.roundtrip(x, num_streams=6)
     torch.cuda.synchronize()
@@ -556,6 +921,7 @@ def main() -> int:
         print("  profiler recorded no device time: not measured", flush=True)
     for name, tm in time_kernels(KERNELS, rng, dev, "device").items():
         timing[name].update(tm)
+    wide = time_wide(KERNELS, rng, dev)
     for name, tm in timing.items():
         print(f"  {name} per roundtrip at ns=6, device / call ms: kernel "
               f"{tm['device_ms']:.4f} / {tm['call_ms']:.4f}, plain "
@@ -580,7 +946,13 @@ def main() -> int:
             "plain_ms": tm["plain_ms"], "plain_call_ms": tm["plain_call_ms"],
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": tm["library_ms"],
-            "library_call_ms": tm["library_call_ms"]})
+            "library_call_ms": tm["library_call_ms"], "wide": wide[name]})
+    print(json.dumps({"paths": {
+        "bf16_code_agreement": bf16_agree, "real_time_factor": {
+            "fp32_plain": rtf["plain"], "fp32_kernels": rtf["kernels"],
+            **{f"{k}_phase_3b": v for k, v in bf16_rtf.items()},
+            **{f"stream_{k}": v for k, v in serving.items()}},
+        "cli": cli_run}}), flush=True)
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

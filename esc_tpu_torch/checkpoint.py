@@ -1,0 +1,155 @@
+"""Reading the JAX package's ``.ckpt`` checkpoints without flax or msgpack.
+
+Port of the read side of ``esc_tpu/checkpoint.py`` (``load_checkpoint``).
+A ``.ckpt`` is one msgpack document as ``flax.serialization.
+msgpack_serialize`` writes it: maps with str keys, arrays, str and bin, ints,
+floats, nil and bools, and msgpack extension types for numpy values (1: an
+ndarray, packed as the msgpack array ``(shape, dtype name, buffer)``; 2: a
+complex; 3: a numpy scalar, packed as an ndarray). Arrays above flax's
+chunk size come as ``{"__msgpack_chunked_array__": True, "shape": ...,
+"chunks": ...}`` and are joined again.
+
+:func:`load_checkpoint` returns that tree with numpy leaves, as
+``flax.serialization.msgpack_restore`` does (msgpack arrays as lists;
+bfloat16 arrays widened, exactly, to float32). :func:`load_model_state`
+turns a checkpoint's ``model_state_dict`` into the port's state dict.
+"""
+
+from __future__ import annotations
+
+import struct
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from .convert import from_jax_params
+
+__all__ = ["load_checkpoint", "unpackb", "load_model_state"]
+
+_EXT_NDARRAY, _EXT_COMPLEX, _EXT_NPSCALAR = 1, 2, 3
+
+
+class _Reader:
+    """A msgpack decoder over one buffer (the subset flax writes)."""
+
+    def __init__(self, data: bytes, raw: bool = False):
+        self.data, self.pos, self.raw = memoryview(data), 0, raw
+
+    def _take(self, n: int) -> memoryview:
+        if self.pos + n > len(self.data):
+            raise ValueError("truncated msgpack data")
+        out = self.data[self.pos:self.pos + n]
+        self.pos += n
+        return out
+
+    def _unpack(self, fmt: str):
+        size = struct.calcsize(fmt)
+        return struct.unpack(fmt, self._take(size))[0]
+
+    def _str(self, n: int):
+        b = bytes(self._take(n))
+        return b if self.raw else b.decode("utf-8")
+
+    def _ext(self, n: int):
+        code = self._unpack(">b")
+        return _ext_value(code, bytes(self._take(n)))
+
+    def value(self) -> Any:
+        b = self._take(1)[0]
+        if b <= 0x7F:
+            return b
+        if b >= 0xE0:
+            return b - 0x100
+        if 0x80 <= b <= 0x8F:
+            return self._map(b & 0x0F)
+        if 0x90 <= b <= 0x9F:
+            return [self.value() for _ in range(b & 0x0F)]
+        if 0xA0 <= b <= 0xBF:
+            return self._str(b & 0x1F)
+        simple = {0xC0: None, 0xC2: False, 0xC3: True}
+        if b in simple:
+            return simple[b]
+        sized = {0xC4: ">B", 0xC5: ">H", 0xC6: ">I"}
+        if b in sized:
+            return bytes(self._take(self._unpack(sized[b])))
+        sized = {0xD9: ">B", 0xDA: ">H", 0xDB: ">I"}
+        if b in sized:
+            return self._str(self._unpack(sized[b]))
+        sized = {0xC7: ">B", 0xC8: ">H", 0xC9: ">I"}
+        if b in sized:
+            return self._ext(self._unpack(sized[b]))
+        if 0xD4 <= b <= 0xD8:
+            return self._ext(1 << (b - 0xD4))
+        numbers = {0xCA: ">f", 0xCB: ">d", 0xCC: ">B", 0xCD: ">H",
+                   0xCE: ">I", 0xCF: ">Q", 0xD0: ">b", 0xD1: ">h",
+                   0xD2: ">i", 0xD3: ">q"}
+        if b in numbers:
+            return self._unpack(numbers[b])
+        if b in (0xDC, 0xDD):
+            n = self._unpack(">H" if b == 0xDC else ">I")
+            return [self.value() for _ in range(n)]
+        if b in (0xDE, 0xDF):
+            return self._map(self._unpack(">H" if b == 0xDE else ">I"))
+        raise ValueError(f"msgpack type byte 0x{b:02x} is not supported")
+
+    def _map(self, n: int) -> dict:
+        out = {}
+        for _ in range(n):
+            key = self.value()
+            out[key] = self.value()
+        return out
+
+
+def unpackb(data: bytes, raw: bool = False) -> Any:
+    """One msgpack document -> Python tree (str as bytes where ``raw``)."""
+    reader = _Reader(data, raw)
+    value = reader.value()
+    if reader.pos != len(reader.data):
+        raise ValueError("trailing bytes after the msgpack document")
+    return value
+
+
+def _ndarray(data: bytes) -> np.ndarray:
+    shape, name, buffer = unpackb(data, raw=True)
+    name = name.decode() if isinstance(name, bytes) else name
+    if name == "bfloat16":  # the high half of a float32, exactly
+        bits = np.frombuffer(buffer, dtype="<u2").astype(np.uint32) << 16
+        return bits.view(np.float32).reshape(shape)
+    return np.frombuffer(buffer, dtype=np.dtype(name)).reshape(shape)
+
+
+def _ext_value(code: int, data: bytes) -> Any:
+    if code == _EXT_NDARRAY:
+        return _ndarray(data)
+    if code == _EXT_NPSCALAR:
+        return _ndarray(data)[()]
+    if code == _EXT_COMPLEX:
+        re, im = unpackb(data)
+        return complex(re, im)
+    raise ValueError(f"msgpack extension type {code} is not supported")
+
+
+def _unchunk(tree: Any) -> Any:
+    """Join flax's chunked arrays (``__msgpack_chunked_array__``)."""
+    if not isinstance(tree, dict):
+        return tree
+    if "__msgpack_chunked_array__" in tree:
+        shape, chunks = tree["shape"], tree["chunks"]
+        shape = tuple(shape[str(i)] for i in range(len(shape)))
+        chunks = [chunks[str(i)] for i in range(len(chunks))]
+        return np.concatenate(chunks).reshape(shape)
+    return {k: _unchunk(v) for k, v in tree.items()}
+
+
+def load_checkpoint(path: str) -> Dict[str, Any]:
+    """Read a ``.ckpt`` payload (``esc_tpu.checkpoint.load_checkpoint``):
+    the top-level keys (``step``, ``model_state_dict``, ...) with numpy
+    array leaves."""
+    with open(path, "rb") as f:
+        return _unchunk(unpackb(f.read()))
+
+
+def load_model_state(path: str) -> Dict[str, torch.Tensor]:
+    """The codec weights of a ``.ckpt`` as the port's state dict."""
+    return from_jax_params(load_checkpoint(path)["model_state_dict"])

@@ -44,6 +44,17 @@
 //   move codes. d is a template parameter for 6, 8, 12, 16, 24 and 32;
 //   other widths take a generic instance that reads the rows from shared
 //   memory.
+// - A codebook too large for shared memory (K 1024 x d >= 57) goes to a
+//   kernel of its own, codebook_argmin_tiled_kernel, which streams it
+//   through shared memory in K-tiles of the launch plan's k_tile
+//   codewords, one tile at a time in one buffer: the block scans a tile,
+//   waits at a barrier, and the next tile replaces it. A thread visits its
+//   codewords in increasing index across tiles and keeps its running
+//   (distance, index) minimum in registers, so the result is the untiled
+//   scan's: the same fmaf order, the first index on ties, NaN -> 0. It has
+//   one instance for every d, the query rows in shared memory, each
+//   codeword value read once for all of the block's rows. These sizes are
+//   off the codec's path: the design is simple and right first.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -66,10 +77,11 @@ __host__ __device__ constexpr int max_rows(int d) {
                                                                    : 64 / d));
 }
 
-// Shared memory of one block: the codebook, the query rows (generic
-// instance), the per-warp partial minima and the mbarrier.
-size_t smem_bytes(int k, int d, int rows) {
-  const size_t cb = ((size_t)k * d * sizeof(float) + 15) / 16 * 16;
+// Shared memory of one block: the codebook (or one tile of k_tile of its
+// codewords), the query rows (generic and tiled kernels), the per-warp
+// partial minima and the mbarrier.
+size_t smem_bytes(int k_tile, int d, int rows) {
+  const size_t cb = ((size_t)k_tile * d * sizeof(float) + 15) / 16 * 16;
   const size_t zs = ((size_t)rows * d * sizeof(float) + 15) / 16 * 16;
   const size_t red = (size_t)kMaxWarps * kMaxRows * 16;
   return cb + zs + red + sizeof(uint64_t);
@@ -302,6 +314,151 @@ codebook_argmin_kernel(const float* __restrict__ z,
   }
 }
 
+// Wait until the bulk copies armed on `bar` for phase `parity` have landed.
+__device__ __forceinline__ void wait_parity(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  const long long t0 = clock64();
+  while (!done) {
+    if (clock64() - t0 > 20000000000LL) __trap();  // a copy never landed
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+// The codebook in K-tiles (see the design notes at the top).
+__global__ void __launch_bounds__(kMaxThreads)
+codebook_argmin_tiled_kernel(const float* __restrict__ z,
+                             const float* __restrict__ cb_g,
+                             int32_t* __restrict__ out, int n, int k, int d,
+                             int rows_per_block, int k_tile) {
+  constexpr int R = kMaxRows;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* cb = reinterpret_cast<float*>(smem);
+  const size_t cb_bytes =
+      ((size_t)k_tile * d * sizeof(float) + 15) / 16 * 16;
+  float* zs = reinterpret_cast<float*>(smem + cb_bytes);
+  const size_t zs_bytes =
+      ((size_t)rows_per_block * d * sizeof(float) + 15) / 16 * 16;
+  uint32_t* red_k = reinterpret_cast<uint32_t*>(smem + cb_bytes + zs_bytes);
+  int* red_i = reinterpret_cast<int*>(red_k + kMaxWarps * kMaxRows);
+  int* red_n = red_i + kMaxWarps * kMaxRows;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(
+      smem + cb_bytes + zs_bytes + (size_t)kMaxWarps * kMaxRows * 16);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int row0 = blockIdx.x * rows_per_block;
+  const int rows = min(rows_per_block, n - row0);
+  const bool aligned = reinterpret_cast<uintptr_t>(cb_g) % 16 == 0;
+  if (tid == 0 && aligned) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar))
+                 : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  for (int e = tid; e < rows * d; e += blockDim.x)
+    zs[e] = z[(size_t)row0 * d + e];
+  __syncthreads();  // the query rows and the mbarrier
+  float zsq[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    float s = 0.f;
+    if (r < rows)
+      for (int c = 0; c < d; ++c) s = fmaf(zs[r * d + c], zs[r * d + c], s);
+    zsq[r] = s;
+  }
+
+  Best best[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) best[r] = Best{INFINITY, k, 0};
+
+  uint32_t phase = 0;
+  for (int t0 = 0; t0 < k; t0 += k_tile) {
+    // codewords t0 .. t0 + nk - 1: a bulk copy of their 16-byte-aligned
+    // whole (tiles start on 16 bytes: k_tile * d is a multiple of 4),
+    // plain loads for the rest
+    const int nk = min(k_tile, k - t0);
+    const size_t total = (size_t)nk * d;
+    const float* src = cb_g + (size_t)t0 * d;
+    const size_t bulk = aligned ? (total * sizeof(float)) / 16 * 16 : 0;
+    if (t0 > 0) {
+      // every thread has read the last tile (from both proxies' side)
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncthreads();
+    }
+    if (tid == 0 && bulk) {
+      asm volatile(
+          "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+              smem_u32(bar)),
+          "r"((uint32_t)bulk)
+          : "memory");
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+          "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(cb)),
+          "l"(src), "r"((uint32_t)bulk), "r"(smem_u32(bar))
+          : "memory");
+    }
+    for (size_t e = bulk / sizeof(float) + tid; e < total; e += blockDim.x)
+      cb[e] = src[e];
+    __syncthreads();  // the plain-loaded tail
+    if (bulk) wait_parity(bar, phase++ & 1);  // tiles under 16 B arm none
+
+    for (int jl = tid; jl < nk; jl += blockDim.x) {
+      // each codeword value is read once for all rows; every row's sum
+      // still runs over u = 0 .. d-1 in order
+      const float* c = cb + (size_t)jl * d;
+      float csq = 0.f, dot[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) dot[r] = 0.f;
+      for (int u = 0; u < d; ++u) {
+        const float cu = c[u];
+        csq = fmaf(cu, cu, csq);
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+          if (r < rows) dot[r] = fmaf(zs[r * d + u], cu, dot[r]);
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if (r >= rows) continue;
+        const float dist = (zsq[r] - 2.f * dot[r]) + csq;
+        if (isnan(dist)) {
+          best[r].nan = 1;
+        } else if (best[r].idx == k || dist < best[r].dist) {
+          best[r].dist = dist;
+          best[r].idx = t0 + jl;
+        }
+      }
+    }
+  }
+
+  // warp minima, then the minimum over the block's warps
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    uint32_t key = order_key(best[r], k);
+    int nan = best[r].nan;
+    const int idx = warp_min(key, best[r].idx, nan, k);
+    if (lane == 0) {
+      red_k[warp * kMaxRows + r] = key;
+      red_i[warp * kMaxRows + r] = idx;
+      red_n[warp * kMaxRows + r] = nan;
+    }
+  }
+  __syncthreads();
+  const int nwarps = blockDim.x >> 5;
+  for (int r = warp; r < rows; r += nwarps) {  // warp r takes row r
+    const bool on = lane < nwarps;
+    uint32_t key = on ? red_k[lane * kMaxRows + r] : 0xffffffffu;
+    int nan = on ? red_n[lane * kMaxRows + r] : 0;
+    const int idx = warp_min(key, on ? red_i[lane * kMaxRows + r] : k, nan, k);
+    if (lane == 0) out[row0 + r] = (nan || idx == k) ? 0 : idx;
+  }
+}
+
 template <int D>
 int launch(const float* z, const float* cb, int32_t* out, int n, int k, int d,
            int rows, int threads, int grid, int smem, cudaStream_t stream) {
@@ -316,6 +473,19 @@ int launch(const float* z, const float* cb, int32_t* out, int n, int k, int d,
   return cudaGetLastError();
 }
 
+int launch_tiled(const float* z, const float* cb, int32_t* out, int n, int k,
+                 int d, int rows, int threads, int grid, int smem, int k_tile,
+                 cudaStream_t stream) {
+  auto kernel = codebook_argmin_tiled_kernel;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<grid, threads, smem, stream>>>(z, cb, out, n, k, d, rows, k_tile);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -324,20 +494,27 @@ extern "C" {
 // current device. The launch plan (rows per block, threads, grid,
 // shared-memory bytes) comes from the wrapper
 // (esc_tpu_torch/ops/kernels/codebook_argmin.py::launch_plan) and is
-// checked here. Returns the CUDA error of the launch (0 = none); a
-// codebook too large for shared memory is refused as an invalid value.
+// checked here; k_tile codewords (k, or a multiple of 4 below it: the
+// tiled kernel) pass through shared memory at a time. Returns the CUDA
+// error of the launch (0 = none); a plan that does not fit is refused as
+// an invalid value.
 int esc_codebook_argmin(const float* z, const float* cb, int32_t* out, int n,
                         int k, int d, int rows, int threads, int grid,
-                        int smem, void* stream) {
+                        int smem, int k_tile, void* stream) {
   if (n <= 0) return cudaSuccess;
   const bool ok = k >= 1 && d >= 1 && rows >= 1 && rows <= kMaxRows &&
+                  k_tile >= 1 && k_tile <= k &&
+                  (k_tile == k || k_tile % 4 == 0) &&
                   threads >= 32 && threads % 32 == 0 &&
                   threads <= kMaxThreads && grid >= 1 &&
                   (long long)grid * rows >= n &&
                   (long long)(grid - 1) * rows < n && smem <= kMaxSmem &&
-                  (size_t)smem == smem_bytes(k, d, rows);
+                  (size_t)smem == smem_bytes(k_tile, d, rows);
   if (!ok) return cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  if (k_tile < k)
+    return launch_tiled(z, cb, out, n, k, d, rows, threads, grid, smem,
+                        k_tile, s);
   switch (d) {
     case 6:
       return launch<6>(z, cb, out, n, k, d, rows, threads, grid, smem, s);

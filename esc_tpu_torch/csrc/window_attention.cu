@@ -59,6 +59,24 @@
 //   rows C floats apart would put the 16 rows on few banks, one per row
 //   from rows padded to C + 4 floats. Two output buffers alternate, so one
 //   barrier per tile suffices.
+//
+// Wider layers (head groups). Where one window of all heads does not fit
+// a block's shared memory, or a head is wider than 32, a second kernel
+// (window_attention_grouped_kernel) takes the call, as the TPU kernel
+// splits heads into channel groups (attention_kernels.py:47-58,
+// _heads_per_tile). Its unit of work is a tile of windows times a group
+// of heads; persistent blocks walk the units. A block copies only its
+// group's q, k and v columns, three strided segments per token row, with
+// plain vector loads (the segments of a head group need not start on 16
+// bytes, so no bulk copies), into rows [q_g | k_g | v_g] padded to 16
+// bytes; the tile's mask comes the same way. Heads up to 32 wide go
+// through the same per-warp code as above; wider heads (up to
+// kMaxWideHeadDim) through attend_wide, which keeps no per-channel
+// registers: a lane scores its row's columns reading q and k from shared
+// memory, the warp's probabilities go to a 16 x 17 scratch tile, and lane
+// c then sums output channels c, c + 32, ... over the 16 keys. The
+// output is written straight to global memory. These widths are off the
+// codec's serving path: the design is simple and right first.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -68,7 +86,8 @@
 namespace {
 
 constexpr int kN = 16;  // tokens per window (4 x 4)
-constexpr int kMaxHeadDim = 32;
+constexpr int kMaxHeadDim = 32;       // per-channel registers (attend)
+constexpr int kMaxWideHeadDim = 256;  // attend_wide
 constexpr int kMaxThreads = 768;
 constexpr int kMaxStages = 4;
 constexpr int kMaxSmem = 232448;  // 227 KB, an H100 block's limit
@@ -550,6 +569,226 @@ window_attention_kernel(const T* __restrict__ qkv,
   if (warp == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
+// One (window, head) pair of any head width (hd up to kMaxWideHeadDim),
+// with no per-channel registers. Lane 2i + half scores row i against the
+// columns j = 2 jj + half, reading q and k from shared memory; the
+// probabilities go to the warp's scratch tile `ps` (16 x kBiasPitch);
+// then lane c sums output channels c, c + 32, ... over the 16 keys, in
+// key order, and writes them to `ob` (row pitch `out_pitch`).
+template <typename T>
+__device__ __forceinline__ void attend_wide(const T* __restrict__ in,
+                                            int pitch, int C, int h, int hd,
+                                            const float* __restrict__ bs,
+                                            const float* __restrict__ mk,
+                                            float* __restrict__ ob,
+                                            int out_pitch, float scale,
+                                            float* __restrict__ ps, int lane) {
+  const int i = lane >> 1, half = lane & 1;
+  const T* qr = in + i * pitch + h * hd;
+  const T* kr = in + half * pitch + C + h * hd;
+  float s[8];
+#pragma unroll
+  for (int jj = 0; jj < 8; ++jj) s[jj] = 0.f;
+  for (int c = 0; c < hd; ++c) {
+    const float q = round_to(load(qr + c) * scale, qr);
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj)
+      s[jj] = fmaf(q, load(kr + 2 * jj * pitch + c), s[jj]);
+  }
+  float m = -INFINITY;
+#pragma unroll
+  for (int jj = 0; jj < 8; ++jj) {
+    const int j = 2 * jj + half;
+    s[jj] += bs[i * kBiasPitch + j];
+    if (mk) s[jj] += mk[i * kMaskPitch + j];
+    m = fmaxf(m, s[jj]);
+  }
+  m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+  float sum = 0.f;
+#pragma unroll
+  for (int jj = 0; jj < 8; ++jj) {
+    s[jj] = expf(s[jj] - m);
+    sum += s[jj];
+  }
+  sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+  const float inv = 1.f / sum;
+#pragma unroll
+  for (int jj = 0; jj < 8; ++jj)
+    ps[i * kBiasPitch + 2 * jj + half] = round_to(s[jj] * inv, qr);
+  __syncwarp();
+  const T* vr = in + 2 * C + h * hd;
+  for (int c = lane; c < hd; c += 32) {
+    // reload the probabilities in every pass: hoisted out of the loop
+    // they would take 256 registers
+    asm volatile("" ::: "memory");
+    float o[kN];
+#pragma unroll
+    for (int r = 0; r < kN; ++r) o[r] = 0.f;
+#pragma unroll
+    for (int j = 0; j < kN; ++j) {
+      const float v = load(vr + j * pitch + c);
+#pragma unroll
+      for (int r = 0; r < kN; ++r) o[r] = fmaf(ps[r * kBiasPitch + j], v, o[r]);
+    }
+#pragma unroll
+    for (int r = 0; r < kN; ++r) ob[r * out_pitch + h * hd + c] = o[r];
+  }
+  __syncwarp();  // ps is read before the warp's next pair writes it
+}
+
+struct GroupPlan {
+  int windows;   // windows per unit
+  int heads;     // heads per group
+  int threads;
+  int grid;
+  int in_pitch;  // bytes between rows of the input buffer
+};
+
+// Shared memory of one block of the grouped kernel: the input buffer, the
+// mask buffer (masked calls only), the padded bias of every head and, for
+// heads wider than kMaxHeadDim, one probability tile per warp.
+size_t grouped_smem_bytes(const GroupPlan& p, int nh, int hd, bool masked) {
+  const size_t tile = (size_t)kN * kBiasPitch * sizeof(float);
+  return (size_t)p.windows * kN * p.in_pitch +
+         (masked ? (size_t)p.windows * kN * kMaskPitch * sizeof(float) : 0) +
+         (size_t)nh * tile + (hd > kMaxHeadDim ? (p.threads / 32) * tile : 0);
+}
+
+// Copies `rows` rows of the three segments (q, k, v) of one head group:
+// `n` bytes each, from row stride `src_row` and segment stride `src_seg`
+// in global memory to row stride `dst_row` and segment stride `dst_seg`
+// in shared memory, in units of U (every offset and `n` are multiples of
+// sizeof(U)).
+template <typename U>
+__device__ __forceinline__ void copy_segments(
+    unsigned char* __restrict__ dst, const unsigned char* __restrict__ src,
+    int rows, int n, size_t src_row, size_t src_seg, int dst_row,
+    int dst_seg) {
+  const int units = n / (int)sizeof(U);
+  const int per_row = 3 * units;
+  for (int e = threadIdx.x; e < rows * per_row; e += blockDim.x) {
+    const int r = e / per_row, rem = e - r * per_row;
+    const int sg = rem / units, c = rem - sg * units;
+    *reinterpret_cast<U*>(dst + (size_t)r * dst_row + sg * dst_seg +
+                          c * sizeof(U)) =
+        *reinterpret_cast<const U*>(src + r * src_row + sg * src_seg +
+                                    c * sizeof(U));
+  }
+}
+
+// Heads split into groups across blocks; heads up to kMaxHeadDim wide
+// keep their channels in registers (attend), wider ones take attend_wide.
+template <typename T, bool WIDE>
+__global__ void __launch_bounds__(kMaxThreads)
+window_attention_grouped_kernel(const T* __restrict__ qkv,
+                                const float* __restrict__ bias,
+                                const float* __restrict__ mask, int n_mask,
+                                float* __restrict__ out, int G, int nh,
+                                int hd, float scale, GroupPlan plan) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int C = nh * hd;
+  const int W = plan.windows, hg = plan.heads;
+  const int Cg = hg * hd;  // elements between segments of a buffer row
+  unsigned char* in_buf = smem;
+  float* mask_buf =
+      reinterpret_cast<float*>(smem + (size_t)W * kN * plan.in_pitch);
+  float* bias_s = mask_buf + (mask ? (size_t)W * kN * kMaskPitch : 0);
+  float* scratch = bias_s + (size_t)nh * kN * kBiasPitch;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int n_tiles = (G + W - 1) / W;
+  const int n_groups = (nh + hg - 1) / hg;
+  const int pitch = plan.in_pitch / (int)sizeof(T);
+  // the widest unit that every segment's offset and length divide
+  const int seg_bytes = hd * (int)sizeof(T);
+  const int unit = seg_bytes % 16 == 0 ? 16
+                   : seg_bytes % 8 == 0 ? 8
+                   : seg_bytes % 4 == 0 ? 4
+                                        : 2;
+
+  for (int e = tid; e < nh * kN * kN; e += blockDim.x)
+    bias_s[(e / kN) * kBiasPitch + e % kN] = bias[e];
+
+  for (int u = blockIdx.x; u < n_tiles * n_groups; u += gridDim.x) {
+    const int tile = u / n_groups, grp = u - tile * n_groups;
+    const int g0 = tile * W, nwin = min(W, G - g0);
+    const int h0 = grp * hg, hgl = min(hg, nh - h0);
+    const int rows = nwin * kN;
+    const unsigned char* src = reinterpret_cast<const unsigned char*>(
+        qkv + (size_t)g0 * kN * 3 * C + (size_t)h0 * hd);
+    const int n = hgl * hd * (int)sizeof(T);
+    const size_t src_row = (size_t)3 * C * sizeof(T);
+    const size_t src_seg = (size_t)C * sizeof(T);
+    const int dst_seg = Cg * (int)sizeof(T);
+    __syncthreads();  // the previous unit's buffers are read
+    if (unit == 16)
+      copy_segments<uint4>(in_buf, src, rows, n, src_row, src_seg,
+                           plan.in_pitch, dst_seg);
+    else if (unit == 8)
+      copy_segments<uint2>(in_buf, src, rows, n, src_row, src_seg,
+                           plan.in_pitch, dst_seg);
+    else if (unit == 4)
+      copy_segments<uint32_t>(in_buf, src, rows, n, src_row, src_seg,
+                              plan.in_pitch, dst_seg);
+    else
+      copy_segments<uint16_t>(in_buf, src, rows, n, src_row, src_seg,
+                              plan.in_pitch, dst_seg);
+    if (mask) {
+      for (int e = tid; e < rows * kN; e += blockDim.x) {
+        const int r = e / kN, j = e - r * kN;
+        const int w = r / kN, i = r - w * kN;
+        mask_buf[r * kMaskPitch + j] =
+            mask[((size_t)((g0 + w) % n_mask) * kN + i) * kN + j];
+      }
+    }
+    __syncthreads();
+
+    const T* in = reinterpret_cast<const T*>(in_buf);
+    for (int p = warp; p < nwin * hgl; p += nwarps) {
+      const int w = p / hgl, hl = p - w * hgl;
+      const T* win = in + (size_t)w * kN * pitch;
+      const float* bh = bias_s + (size_t)(h0 + hl) * kN * kBiasPitch;
+      const float* mw = mask ? mask_buf + w * kN * kMaskPitch : nullptr;
+      float* ow = out + (size_t)(g0 + w) * kN * C + (size_t)h0 * hd;
+      if constexpr (WIDE)
+        attend_wide<T>(win, pitch, Cg, hl, hd, bh, mw, ow, C, scale,
+                       scratch + (size_t)warp * kN * kBiasPitch, lane);
+      else
+        attend<T, 0>(win, pitch, Cg, hl, hd, bh, mw, ow, C, scale, lane);
+    }
+  }
+}
+
+template <typename T, bool WIDE>
+int launch_grouped(const T* qkv, const float* bias, const float* mask,
+                   int n_mask, float* out, int G, int nh, int hd, float scale,
+                   const GroupPlan& plan, int smem, cudaStream_t stream) {
+  auto kernel = window_attention_grouped_kernel<T, WIDE>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<plan.grid, plan.threads, smem, stream>>>(qkv, bias, mask, n_mask,
+                                                    out, G, nh, hd, scale,
+                                                    plan);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int dispatch_grouped(const void* qkv, const float* bias, const float* mask,
+                     int n_mask, float* out, int G, int nh, int hd,
+                     float scale, const GroupPlan& plan, int smem,
+                     cudaStream_t s) {
+  const T* x = static_cast<const T*>(qkv);
+  if (hd > kMaxHeadDim)
+    return launch_grouped<T, true>(x, bias, mask, n_mask, out, G, nh, hd,
+                                   scale, plan, smem, s);
+  return launch_grouped<T, false>(x, bias, mask, n_mask, out, G, nh, hd,
+                                  scale, plan, smem, s);
+}
+
 template <typename T, int HD>
 int launch(const T* qkv, const float* bias, const float* mask, int n_mask,
            float* out, int G, int nh, int hd, float scale, const Plan& plan,
@@ -611,34 +850,54 @@ extern "C" {
 // mask (n_mask, 16, 16) f32 or null; out (G, 16, C) f32, 16-byte aligned;
 // all contiguous on the current device. The launch plan (windows per tile,
 // stages, threads, grid, input row pitch in bytes, output row pitch in
-// floats, shared-memory bytes) comes from the wrapper
+// floats, shared-memory bytes, heads per group) comes from the wrapper
 // (esc_tpu_torch/ops/kernels/window_attention.py::launch_plan) and is
-// checked here. Returns the CUDA error of the launch (0 = none).
+// checked here. heads_per_group 0 takes the all-heads kernel (stages and
+// out_pitch apply); > 0 the grouped kernel (stages 1, out_pitch 0).
+// Returns the CUDA error of the launch (0 = none).
 int esc_window_attention(const void* qkv, int qkv_is_bf16, const float* bias,
                          const float* mask, int n_mask, float* out, int G,
                          int nh, int hd, float scale, int windows, int stages,
                          int threads, int grid, int in_pitch, int out_pitch,
-                         int smem, void* stream) {
+                         int smem, int heads_per_group, void* stream) {
   if (G <= 0) return cudaSuccess;
   const int C = nh * hd;
-  const int row_bytes = 3 * C * (qkv_is_bf16 ? 2 : 4);
+  const int es = qkv_is_bf16 ? 2 : 4;
+  const int row_bytes = 3 * C * es;
+  const bool common =
+      hd >= 1 && nh >= 1 && (!mask || n_mask >= 1) && windows >= 1 &&
+      threads >= 32 && threads % 32 == 0 && threads <= kMaxThreads &&
+      grid >= 1 && smem <= kMaxSmem &&
+      reinterpret_cast<uintptr_t>(qkv) % 16 == 0 &&
+      reinterpret_cast<uintptr_t>(mask) % 16 == 0 &&
+      reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (heads_per_group > 0) {
+    const GroupPlan plan{windows, heads_per_group, threads, grid, in_pitch};
+    const bool ok =
+        common && hd <= kMaxWideHeadDim && heads_per_group <= nh &&
+        stages == 1 && out_pitch == 0 && in_pitch % 16 == 0 &&
+        in_pitch >= 3 * heads_per_group * hd * es &&
+        threads / 32 <= windows * heads_per_group &&
+        (size_t)smem == grouped_smem_bytes(plan, nh, hd, mask != nullptr);
+    if (!ok) return cudaErrorInvalidValue;
+    return qkv_is_bf16
+               ? dispatch_grouped<__nv_bfloat16>(qkv, bias, mask, n_mask, out,
+                                                 G, nh, hd, scale, plan, smem,
+                                                 s)
+               : dispatch_grouped<float>(qkv, bias, mask, n_mask, out, G, nh,
+                                         hd, scale, plan, smem, s);
+  }
   const Plan plan{windows, stages, threads, grid, in_pitch, out_pitch};
   const bool ok =
-      hd >= 1 && hd <= kMaxHeadDim && nh >= 1 && (!mask || n_mask >= 1) &&
-      windows >= 1 && stages >= 1 && stages <= kMaxStages && threads >= 32 &&
-      threads % 32 == 0 && threads <= kMaxThreads && grid >= 1 &&
+      common && hd <= kMaxHeadDim && stages >= 1 && stages <= kMaxStages &&
       (in_pitch == row_bytes ||
        (in_pitch > row_bytes && in_pitch % 16 == 0 && row_bytes % 16 == 0)) &&
       (out_pitch == C || (out_pitch % 4 == 0 && C % 4 == 0 &&
                           out_pitch > C)) &&
-      smem <= kMaxSmem &&
       (size_t)smem == smem_bytes(plan, nh, mask != nullptr) &&
-      (size_t)windows * kN * (row_bytes + kN * sizeof(float)) < (1u << 20) &&
-      reinterpret_cast<uintptr_t>(qkv) % 16 == 0 &&
-      reinterpret_cast<uintptr_t>(mask) % 16 == 0 &&
-      reinterpret_cast<uintptr_t>(out) % 16 == 0;
+      (size_t)windows * kN * (row_bytes + kN * sizeof(float)) < (1u << 20);
   if (!ok) return cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
   return qkv_is_bf16
              ? dispatch<__nv_bfloat16>(qkv, bias, mask, n_mask, out, G, nh,
                                        hd, scale, plan, smem, s)

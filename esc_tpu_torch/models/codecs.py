@@ -7,6 +7,15 @@ inference (reference: esc/models/codecs.py:9-94):
     codes, feat_shape = model.encode(x, num_streams=6)
     recon = model.decode(codes, feat_shape)
 
+``dtype=torch.bfloat16`` is the bf16 serving mode (``esc_tpu/models/
+codecs.py:304-339``): parameters stay float32; the Swin blocks' Linear
+layers (attention qkv and proj, the MLP) run in bf16 with fp32
+accumulation, as the JAX package's ``nn.Dense(dtype=bf16)`` layers do; the
+attention kernel takes the bf16 qkv and returns fp32 (rounded back to bf16
+before ``proj``); LayerNorm, the patch layers, the VQ distances and the
+STFT / ISTFT stay float32. ``encode_chunked`` / ``decode_chunked`` serve
+long files in constant memory.
+
 Parameter names are the reference's torch keys, so one state dict serves
 weights carried from the JAX package (:func:`esc_tpu_torch.convert.
 from_jax_params`) and reference checkpoints.
@@ -23,7 +32,7 @@ import torch.nn as nn
 
 from ..device import resolve_device
 from ..io import esc_pad_length
-from ..modules.transformer import WindowAttention
+from ..modules.transformer import FeedForward, WindowAttention
 from ..modules.vq import Codebook, ProductVectorQuantize
 from ..ops.stft import audio_reconstruct, spec_transform
 from .base import Encoder, max_bps
@@ -54,6 +63,7 @@ class ESCModule(nn.Module):
             in_freq, win_len, hop_len, sr)
         self.patch_size = tuple(patch_size)
         self.max_streams, self.overlap = max_streams, overlap
+        self.window_size = window_size
         self.group_size, self.codebook_size = group_size, codebook_size
         h = list(h_dims)
         dec_h = h[::-1]
@@ -119,19 +129,25 @@ class ESC:
     weights and takes numpy arrays or tensors.
 
     ``plain_ops=True`` runs the plain PyTorch versions of the kernels on
-    any device, as the yardstick the kernels are held to.
+    any device, as the yardstick the kernels are held to. ``dtype`` is the
+    compute dtype of the Swin blocks' Linear layers (float32, or bfloat16
+    for the bf16 serving mode; see the module docstring).
     """
 
     def __init__(self, seed: int = 0,
                  device: Optional[Union[str, torch.device]] = None,
-                 plain_ops: bool = False, **config):
+                 plain_ops: bool = False,
+                 dtype: Union[str, torch.dtype] = torch.float32, **config):
         self.config = dict(config)
         self.device = resolve_device(device)
+        self.dtype = _compute_dtype(dtype)
         self.module = ESCModule(**config)
         _init_parameters(self.module, torch.Generator().manual_seed(seed))
         for m in self.module.modules():
             if isinstance(m, (WindowAttention, Codebook)):
                 m.plain_ops = plain_ops
+            if isinstance(m, (WindowAttention, FeedForward)):
+                m.compute_dtype = self.dtype
         self.module.to(self.device).eval()
 
     # -- weights ----------------------------------------------------------
@@ -212,10 +228,127 @@ class ESC:
         codes, fs = self.encode(x, num_streams)
         return codes, fs, self.decode(codes, fs)
 
+    # -- long files (constant memory) --------------------------------------
+
+    def _samples_per_code(self) -> int:
+        m = self.module
+        return self._hop() * m.patch_size[1] * m.overlap  # 320 for ESC-Base
+
+    def _chunking(self, chunk_seconds: float, margin_seconds: float
+                  ) -> Tuple[int, int]:
+        """Chunk and margin in code frames, both multiples of
+        ``window_size // overlap`` so that every chunk keeps the Swin window
+        grid of the whole file (DESIGN.md section 8)."""
+        m, spc = self.module, self._samples_per_code()
+        align = max(1, m.window_size // m.overlap)
+        chunk = max(align, (int(chunk_seconds * m.sr) // spc)
+                    // align * align)
+        margin = max(align, -(-int(margin_seconds * m.sr) // spc)
+                     // align * align)
+        return chunk, margin
+
+    def encode_chunked(self, x, num_streams: int = 6,
+                       chunk_seconds: float = 10.0,
+                       margin_seconds: float = 1.0
+                       ) -> Tuple[torch.Tensor, Tuple[int, int]]:
+        """Encode a long file chunk by chunk, each with ``margin_seconds``
+        of context on both sides, keeping the chunk's own codes
+        (``esc_tpu/models/codecs.py:441``). Codes equal the whole file's
+        away from the seams. Returns (codes on the device, feat_shape of
+        the whole file). Two chunks are in flight (:mod:`..serving`)."""
+        from ..serving import stream_map
+
+        self._check_streams(num_streams)
+        if isinstance(x, torch.Tensor):
+            x = x.detach().cpu().numpy()
+        x = np.asarray(x, np.float32)
+        if x.ndim == 1:
+            x = x[None]
+        spc = self._samples_per_code()
+        L = x.shape[-1]
+        fs_full = self.feat_shape(L)
+        total_codes = fs_full[1] // self.module.overlap
+        chunk, margin = self._chunking(chunk_seconds, margin_seconds)
+        if total_codes <= chunk:
+            return self.encode(x, num_streams)
+        # the last center-padded STFT frame makes the whole file's codes
+        # cover total_codes * spc samples: zero-fill the tail
+        need = total_codes * spc
+        if need > L:
+            x = np.pad(x, ((0, 0), (0, need - L)))
+        metas, segs = [], []
+        for start in range(0, total_codes, chunk):
+            end = min(start + chunk, total_codes)
+            lo, hi = max(0, start - margin), min(total_codes, end + margin)
+            metas.append((start, lo, end))
+            segs.append(x[:, lo * spc:hi * spc])
+        pieces = [c[..., start - lo:end - lo] for (start, lo, end), c in zip(
+            metas, stream_map(lambda s: self.encode(s, num_streams)[0], segs,
+                              depth=2, device=self.device))]
+        codes = torch.from_numpy(np.concatenate(pieces, axis=-1))
+        return codes.to(self.device), fs_full
+
+    def decode_chunked(self, codes, feat_shape: Tuple[int, int],
+                       chunk_seconds: float = 10.0,
+                       margin_seconds: float = 1.0,
+                       crossfade: int = 160) -> torch.Tensor:
+        """Decode chunk by chunk, the inverse of :meth:`encode_chunked`
+        (``esc_tpu/models/codecs.py:498``): each chunk with margins, the
+        seams joined by a linear crossfade of ``crossfade`` samples, the
+        result padded to the whole file's ``(W * patch_t - 1) * hop``
+        samples. Returns the waveform on the device."""
+        from ..serving import stream_map
+
+        if isinstance(codes, torch.Tensor):
+            codes = codes.cpu().numpy()
+        codes = np.asarray(codes)
+        spc = self._samples_per_code()
+        total_codes = codes.shape[-1]
+        chunk, margin = self._chunking(chunk_seconds, margin_seconds)
+        if total_codes <= chunk:
+            return self.decode(codes, feat_shape)
+        H, overlap = feat_shape[0], self.module.overlap
+        metas, segs = [], []
+        for start in range(0, total_codes, chunk):
+            end = min(start + chunk, total_codes)
+            lo, hi = max(0, start - margin), min(total_codes, end + margin)
+            metas.append((start, lo, end))
+            segs.append(codes[..., lo:hi])
+        out = None
+        for (start, lo, end), y in zip(metas, stream_map(
+                lambda c: self.decode(c, (H, c.shape[-1] * overlap)), segs,
+                depth=2, device=self.device)):
+            keep = y[:, (start - lo) * spc:(end - lo) * spc].copy()
+            if out is None:
+                out = keep
+                continue
+            xf = min(crossfade, keep.shape[-1], out.shape[-1])
+            if xf > 0:
+                # fade from the previous chunk into this chunk's decode of
+                # the samples before its start (its left margin)
+                tail = y[:, (start - lo) * spc - xf:(start - lo) * spc]
+                w = np.linspace(0.0, 1.0, xf, dtype=np.float32)[None]
+                out[:, -xf:] = out[:, -xf:] * (1 - w) + tail * w
+            out = np.concatenate([out, keep], axis=-1)
+        expected = (feat_shape[1] * self.module.patch_size[1] - 1) \
+            * self._hop()
+        if out.shape[-1] < expected:
+            out = np.pad(out, ((0, 0), (0, expected - out.shape[-1])))
+        return torch.from_numpy(out[:, :expected]).to(self.device)
+
+
+def _compute_dtype(dtype: Union[str, torch.dtype]) -> torch.dtype:
+    names = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    dt = names.get(dtype, dtype) if isinstance(dtype, str) else dtype
+    if dt not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"dtype must be float32 or bfloat16, got {dtype!r}")
+    return dt
+
 
 def make_model(model_config, model_name: str = "csvq+swinT", seed: int = 0,
                device: Optional[Union[str, torch.device]] = None,
-               plain_ops: bool = False) -> ESC:
+               plain_ops: bool = False,
+               dtype: Union[str, torch.dtype] = torch.float32) -> ESC:
     """Build a codec from a config dict (esc/models/codecs.py:190). The port
     serves ``csvq+swinT``; the other reference names raise."""
     if model_name != "csvq+swinT":
@@ -224,7 +357,8 @@ def make_model(model_config, model_name: str = "csvq+swinT", seed: int = 0,
     cfg = model_config if isinstance(model_config, dict) \
         else vars(model_config)
     cfg = _normalize_config(dict(cfg))
-    return ESC(seed=seed, device=device, plain_ops=plain_ops, **cfg)
+    return ESC(seed=seed, device=device, plain_ops=plain_ops, dtype=dtype,
+               **cfg)
 
 
 def _normalize_config(cfg: dict) -> dict:

@@ -6,6 +6,12 @@ position index are functions of the static token grid, built once in numpy
 and cached on the device. The attention between the qkv and output
 projections is the fused window-attention kernel
 (:mod:`esc_tpu_torch.ops.kernels.window_attention`).
+
+The Linear layers of the attention and the MLP compute in their module's
+``compute_dtype`` (set by the codec: float32, or bfloat16 in the bf16
+serving mode) from float32 parameters, as the JAX package's
+``nn.Dense(dtype=...)`` does; LayerNorm and the residual stream stay
+float32 (``esc_tpu/modules/transformer.py:180-280``).
 """
 
 from __future__ import annotations
@@ -65,6 +71,26 @@ def relative_position_index(wh: int, ww: int) -> np.ndarray:
     return rel.sum(-1)
 
 
+def _linear(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype
+           ) -> torch.Tensor:
+    """``layer(x)`` computed in ``dtype``: input, weight and bias cast to it
+    (fp32 accumulation in bf16 products), the parameters kept as they are.
+    Outside autograd the cast weight and bias are kept on the layer until
+    the parameters change (a new version or storage), so that serving
+    casts only activations."""
+    if dtype == torch.float32 and x.dtype == torch.float32:
+        return layer(x)
+    w, b = layer.weight, layer.bias
+    key = (dtype, w.data_ptr(), w._version,
+           None if b is None else (b.data_ptr(), b._version))
+    cast = getattr(layer, "_cast", None)
+    if cast is None or cast[0] != key or torch.is_grad_enabled():
+        cast = (key, w.to(dtype), None if b is None else b.to(dtype))
+        if not torch.is_grad_enabled():
+            layer._cast = cast
+    return F.linear(x.to(dtype), cast[1], cast[2])
+
+
 def window_partition(x: torch.Tensor, window: int) -> torch.Tensor:
     """(B, H, W, C) -> (B*nW, window, window, C)."""
     B, H, W, C = x.shape
@@ -87,9 +113,11 @@ class WindowAttention(nn.Module):
 
     ``plain_ops`` (set by the codec) runs the plain PyTorch attention in
     place of the kernel, on any device: the yardstick the kernel is held to.
+    ``compute_dtype`` (set by the codec) is the dtype of the projections.
     """
 
     plain_ops = False
+    compute_dtype = torch.float32
 
     def __init__(self, dim: int, window_size: int, num_heads: int):
         super().__init__()
@@ -114,12 +142,17 @@ class WindowAttention(nn.Module):
             self.relative_position_index.reshape(-1)].reshape(N, N, -1)
         bias = bias.permute(2, 0, 1).contiguous()         # (nh, N, N)
         attend = window_attention_plain if self.plain_ops else window_attention
-        out = attend(self.qkv(x), bias, mask, self.num_heads, self.scale)
-        return self.proj(out)
+        dt = self.compute_dtype
+        out = attend(_linear(self.qkv, x, dt), bias, mask, self.num_heads,
+                     self.scale)
+        return _linear(self.proj, out.to(dt), dt)
 
 
 class FeedForward(nn.Module):
-    """Linear -> exact GELU -> Linear."""
+    """Linear -> exact GELU -> Linear, in ``compute_dtype`` (set by the
+    codec)."""
+
+    compute_dtype = torch.float32
 
     def __init__(self, dim: int, hidden: int):
         super().__init__()
@@ -127,7 +160,9 @@ class FeedForward(nn.Module):
         self.linear_2 = nn.Linear(hidden, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.linear_2(F.gelu(self.linear_1(x)))
+        dt = self.compute_dtype
+        return _linear(self.linear_2, F.gelu(_linear(self.linear_1, x, dt)),
+                      dt)
 
 
 class SwinBlock(nn.Module):

@@ -1,8 +1,9 @@
 """Build the port's CUDA kernels with plain ``nvcc`` and load them with ctypes.
 
-All sources under ``esc_tpu_torch/csrc/*.cu`` are compiled in one ``nvcc``
-call into one shared library with a plain C interface, for ``sm_90a``
-(Hopper). No PyTorch header is included, so the build takes seconds. The
+Every source under ``esc_tpu_torch/csrc/*.cu`` is compiled by its own
+``nvcc`` process, all started together, and the objects are linked into one
+shared library with a plain C interface, for ``sm_90a`` (Hopper). No
+PyTorch header is included, so the build takes seconds. The
 library lands in ``esc_tpu_torch/_build/`` (listed in ``.gitignore``) under
 a name that carries the hash of the sources, so a changed source is rebuilt
 and an unchanged one is loaded as it is. The build runs at the first launch
@@ -22,7 +23,7 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["CSRC_DIR", "BUILD_DIR", "nvcc_command", "library_path",
+__all__ = ["CSRC_DIR", "BUILD_DIR", "nvcc_commands", "library_path",
            "build", "build_log", "library", "function", "check", "num_sms",
            "on_device", "stream_of", "MAX_SMEM_PER_BLOCK", "SMEM_PER_SM",
            "SMEM_RESERVED_PER_BLOCK"]
@@ -42,9 +43,9 @@ _vp, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # name: (argtypes, restype)
     "esc_codebook_argmin": ([_vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i,
-                             _vp], _i),
+                             _i, _vp], _i),
     "esc_window_attention": ([_vp, _i, _vp, _vp, _i, _vp, _i, _i, _i, _f,
-                              _i, _i, _i, _i, _i, _i, _i, _vp], _i),
+                              _i, _i, _i, _i, _i, _i, _i, _i, _vp], _i),
     "esc_cuda_error_string": ([_i], ctypes.c_char_p),
 }
 
@@ -62,10 +63,20 @@ def _nvcc() -> str:
                        "port's CUDA kernels are built with it at first use")
 
 
-def nvcc_command(output: Path) -> list[str]:
-    return [_nvcc(), "-gencode", GENCODE, "-std=c++17", "-O3", "-shared",
-            "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(output),
-            *(str(p) for p in _sources())]
+def nvcc_commands(output: Path) -> tuple[list[list[str]], list[str]]:
+    """(one compile command per source, the link command) that build
+    ``output``; the objects lie beside it."""
+    nvcc = _nvcc()
+    compiles, objects = [], []
+    for src in _sources():
+        obj = output.with_name(f"{output.stem}.{src.stem}.o")
+        objects.append(str(obj))
+        compiles.append([nvcc, "-gencode", GENCODE, "-std=c++17", "-O3",
+                         "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-c",
+                         str(src), "-o", str(obj)])
+    link = [nvcc, "-gencode", GENCODE, "-shared", "-o", str(output),
+            *objects]
+    return compiles, link
 
 
 def library_path() -> Path:
@@ -93,12 +104,27 @@ def build() -> tuple[Path, bool]:
         return path, False
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp.so")
-    proc = subprocess.run(nvcc_command(tmp), capture_output=True, text=True)
-    if proc.returncode != 0:
+    compiles, link = nvcc_commands(tmp)
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in compiles]
+    outputs = [p.communicate()[0] for p in procs]
+    log = "".join(outputs)
+    try:
+        failed = [p.returncode for p in procs if p.returncode != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed ({failed[0]}):\n{log}")
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{proc.stdout}{proc.stderr}")
+    except RuntimeError:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}"
-                           f"{proc.stderr}")
-    _log_path(path).write_text(proc.stdout + proc.stderr)
+        raise
+    finally:
+        for cmd in compiles:  # the objects ("-o" is each command's last)
+            Path(cmd[-1]).unlink(missing_ok=True)
+    _log_path(path).write_text(log)
     os.replace(tmp, path)  # atomic: a concurrent loader sees all or nothing
     return path, True
 

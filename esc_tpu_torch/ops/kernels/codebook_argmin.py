@@ -4,7 +4,8 @@ Port of ``esc_tpu/ops/pallas/vq_kernels.py::codebook_argmin``. For each
 query row: ``argmin_k(|z|^2 - 2 z.c_k + |c_k|^2)`` in fp32, the first index
 on exact ties, code 0 for a row whose distances hold a NaN. The kernel is
 ``esc_tpu_torch/csrc/codebook_argmin.cu``; its launch plan is
-:func:`launch_plan`, a pure function of the shapes.
+:func:`launch_plan`, a pure function of the shapes. A codebook too large for
+a block's shared memory streams through it in K-tiles.
 """
 
 from __future__ import annotations
@@ -23,20 +24,24 @@ MAX_THREADS = 256         # the kernel's __launch_bounds__
 MAX_WARPS = MAX_THREADS // 32
 MAX_ROWS = 8              # rows per block
 SPECIALISED_DIMS = (6, 8, 12, 16, 24, 32)  # the kernel's template widths
+TILE_BYTES = 64 * 1024    # a K-tile's aim, where the codebook does not fit
 
 
 class ArgminPlan(NamedTuple):
     """How one call maps onto the card; checked again by the kernel.
 
     ``grid`` blocks of ``threads`` threads take ``rows`` consecutive query
-    rows each; ``bulk_bytes`` of the codebook arrive by one bulk copy (when
-    the codebook is 16-byte aligned), the rest by plain loads.
+    rows each; the codebook passes through shared memory ``k_tile``
+    codewords at a time (``k_tile == K``: all of it at once), ``bulk_bytes``
+    of a full tile by one bulk copy (when the codebook is 16-byte aligned),
+    the rest by plain loads.
     """
     rows: int
     threads: int
     grid: int
     smem: int
     bulk_bytes: int
+    k_tile: int
 
 
 def max_rows(d: int) -> int:
@@ -52,20 +57,33 @@ def _round16(n: int) -> int:
     return -(-n // 16) * 16
 
 
+def smem_bytes(k_tile: int, d: int, rows: int) -> int:
+    """The kernel's smem_bytes: one codebook tile, the query rows, the
+    per-warp partial minima and the mbarrier."""
+    return (_round16(k_tile * d * 4) + _round16(rows * d * 4)
+            + MAX_WARPS * MAX_ROWS * 16 + 8)
+
+
 @functools.lru_cache(maxsize=None)
 def launch_plan(N: int, K: int, d: int, num_sms: int) -> ArgminPlan:
     """The kernel's launch plan for ``N`` rows against a ``(K, d)`` codebook
     on a card of ``num_sms`` SMs: about ``N / num_sms`` rows per block, so
-    that one wave of blocks covers the card. Raises ``ValueError`` for a
-    codebook that does not fit in a block's shared memory."""
+    that one wave of blocks covers the card. The codebook is one tile where
+    it fits in a block's shared memory, else tiles of about
+    :data:`TILE_BYTES` (a multiple of 4 codewords, so that every tile starts
+    on 16 bytes). Raises ``ValueError`` where not even 4 codewords fit."""
     rows = min(max_rows(d), max(1, -(-N // num_sms)))
-    threads = min(MAX_THREADS, 32 * -(-K // 32))
     grid = -(-N // rows)
-    smem = (_round16(K * d * 4) + _round16(rows * d * 4)
-            + MAX_WARPS * MAX_ROWS * 16 + 8)
+    k_tile = K
+    if smem_bytes(K, d, rows) > _build.MAX_SMEM_PER_BLOCK:
+        k_tile = min(K, max(4, TILE_BYTES // (d * 4) // 4 * 4))
+    smem = smem_bytes(k_tile, d, rows)
     if smem > _build.MAX_SMEM_PER_BLOCK:
-        raise ValueError(f"codebook ({K}, {d}) does not fit in shared memory")
-    return ArgminPlan(rows, threads, grid, smem, K * d * 4 // 16 * 16)
+        raise ValueError(f"codebook ({K}, {d}): not even a tile of "
+                         f"{k_tile} codewords fits in shared memory")
+    threads = min(MAX_THREADS, 32 * -(-k_tile // 32))
+    return ArgminPlan(rows, threads, grid, smem, k_tile * d * 4 // 16 * 16,
+                      k_tile)
 
 
 def codebook_argmin_plain(z: torch.Tensor, codebook: torch.Tensor
@@ -119,7 +137,7 @@ def codebook_argmin(z: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
     with _build.on_device(dev):
         _build.check(fn(
             z.data_ptr(), codebook.data_ptr(), out.data_ptr(), N, K, d,
-            plan.rows, plan.threads, plan.grid, plan.smem,
+            plan.rows, plan.threads, plan.grid, plan.smem, plan.k_tile,
             _build.stream_of(dev)), "codebook_argmin")
     codebook_argmin.launches += 1
     return out

@@ -5,8 +5,11 @@ Per window g and head h of the qkv projection ``(G, N, 3C)``:
 ``softmax((q * scale) k^T + bias[h] + mask[g % nW]) v``, with fp32 scores
 and softmax and an fp32 ``(G, N, C)`` output. The kernel is
 ``esc_tpu_torch/csrc/window_attention.cu``; it copies whole windows of the
-projection into shared memory, so no split copies are made. Its launch plan
-is :func:`launch_plan`, a pure function of the shapes.
+projection into shared memory, so no split copies are made. Where one window
+of all heads does not fit a block's shared memory, or a head is wider than
+:data:`MAX_REGISTER_HEAD_DIM`, heads are split into groups across blocks, as
+the TPU kernel does (``attention_kernels.py:47-58``). Its launch plan is
+:func:`launch_plan`, a pure function of the shapes.
 """
 
 from __future__ import annotations
@@ -22,7 +25,8 @@ __all__ = ["window_attention", "window_attention_plain", "launch_plan",
            "AttentionPlan", "WINDOW_TOKENS", "MAX_HEAD_DIM"]
 
 WINDOW_TOKENS = 16  # 4 x 4 windows
-MAX_HEAD_DIM = 32
+MAX_HEAD_DIM = 256          # the grouped kernel's attend_wide
+MAX_REGISTER_HEAD_DIM = 32  # the all-heads kernel (per-channel registers)
 MAX_THREADS = 768         # the kernel's __launch_bounds__
 MAX_BULK_BYTES = 1 << 20  # an mbarrier counts fewer transaction bytes
 STAGE_BYTES = 32 * 1024   # aim for one tile's input
@@ -30,6 +34,7 @@ PAIRS_PER_TILE = 12       # aim for (window, head) pairs, one warp each
 REGS_PER_THREAD = 80      # the most __launch_bounds__(768) leaves ptxas
 BIAS_PITCH = WINDOW_TOKENS + 1
 MASK_PITCH = 20
+GROUP_STAGE_BYTES = 64 * 1024  # aim for one unit's input, grouped kernel
 
 
 class AttentionPlan(NamedTuple):
@@ -39,6 +44,12 @@ class AttentionPlan(NamedTuple):
     ``threads`` threads walk the tiles through a ring of ``stages`` input
     buffers whose rows are ``in_pitch`` bytes apart, each tile's output
     going through a buffer with rows of ``out_pitch`` floats.
+
+    With ``heads > 0`` (the grouped kernel) a unit of work is a tile times a
+    group of ``heads`` heads, ``groups`` groups per tile; the blocks walk
+    ``tiles * groups`` units through one input buffer (``stages`` 1) and
+    write the output straight to global memory (``out_pitch`` 0).
+    ``heads == 0`` is the all-heads kernel, ``groups`` 1.
     """
     windows: int
     stages: int
@@ -49,6 +60,8 @@ class AttentionPlan(NamedTuple):
     smem: int
     tiles: int
     row_bytes: int
+    heads: int = 0
+    groups: int = 1
 
 
 def _smem(windows: int, stages: int, in_pitch: int, out_pitch: int,
@@ -60,6 +73,54 @@ def _smem(windows: int, stages: int, in_pitch: int, out_pitch: int,
     return (stages * (windows * n * in_pitch + mask)
             + 2 * windows * n * out_pitch * 4 + nh * n * BIAS_PITCH * 4
             + 8 * stages)
+
+
+def _grouped_smem(windows: int, threads: int, in_pitch: int, nh: int,
+                  hd: int, masked: bool) -> int:
+    # the kernel's grouped_smem_bytes: input buffer, mask buffer, padded
+    # bias of every head, one probability tile per warp for wide heads
+    n = WINDOW_TOKENS
+    tile = n * BIAS_PITCH * 4
+    return (windows * n * in_pitch
+            + (windows * n * MASK_PITCH * 4 if masked else 0)
+            + nh * tile
+            + (threads // 32 * tile if hd > MAX_REGISTER_HEAD_DIM else 0))
+
+
+def _group_pitch(heads: int, hd: int, elem: int) -> int:
+    # a buffer row [q_g | k_g | v_g], padded to 16 bytes and off a multiple
+    # of 128 (so that rows start on different banks)
+    pitch = -(-3 * heads * hd * elem // 16) * 16
+    return pitch + 16 if pitch % 128 == 0 else pitch
+
+
+def _grouped_plan(G: int, nh: int, hd: int, bf16: bool, masked: bool,
+                  num_sms: int) -> AttentionPlan:
+    n = WINDOW_TOKENS
+    elem = 2 if bf16 else 4
+    heads = max(1, min(nh, GROUP_STAGE_BYTES
+                       // (n * _group_pitch(1, hd, elem))))
+    while True:
+        heads = -(-nh // -(-nh // heads))  # groups of one size where it can
+        in_pitch = _group_pitch(heads, hd, elem)
+        windows = max(1, min(G, PAIRS_PER_TILE // heads,
+                             GROUP_STAGE_BYTES // (n * in_pitch)))
+        threads = 32 * min(windows * heads, MAX_THREADS // 32)
+        smem = _grouped_smem(windows, threads, in_pitch, nh, hd, masked)
+        if smem <= _build.MAX_SMEM_PER_BLOCK:
+            break
+        if heads == 1:
+            raise ValueError(f"window attention: {nh} heads x {hd} channels "
+                             "need more shared memory than a block has")
+        heads -= 1
+    groups = -(-nh // heads)
+    tiles = -(-G // windows)
+    per_sm = min(_build.SMEM_PER_SM
+                 // (smem + _build.SMEM_RESERVED_PER_BLOCK),
+                 2048 // threads, 65536 // (threads * REGS_PER_THREAD))
+    grid = min(tiles * groups, num_sms * max(1, per_sm))
+    return AttentionPlan(windows, 1, threads, grid, in_pitch, 0, smem, tiles,
+                         3 * nh * hd * elem, heads, groups)
 
 
 @functools.lru_cache(maxsize=None)
@@ -74,9 +135,19 @@ def launch_plan(G: int, nh: int, hd: int, bf16: bool, masked: bool,
     padded by 4 floats (and then stored row by row). A tile holds about
     :data:`PAIRS_PER_TILE` (window, head) pairs and at most
     :data:`STAGE_BYTES` of input where a window allows; two stages where
-    shared memory allows, else one. Raises ``ValueError`` for a width whose
-    single window does not fit.
+    shared memory allows, else one.
+
+    Where not even one window of all heads fits that way, or ``hd`` exceeds
+    :data:`MAX_REGISTER_HEAD_DIM`, the plan is the grouped kernel's
+    (``heads > 0``): groups of equal size where ``nh`` allows, as many heads
+    as about :data:`GROUP_STAGE_BYTES` of input hold. Raises ``ValueError``
+    for ``hd`` outside 1..:data:`MAX_HEAD_DIM` and where not even one
+    window of one head fits.
     """
+    if not 1 <= hd <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim {hd} outside 1..{MAX_HEAD_DIM}")
+    if hd > MAX_REGISTER_HEAD_DIM:
+        return _grouped_plan(G, nh, hd, bf16, masked, num_sms)
     n = WINDOW_TOKENS
     C = nh * hd
     row_bytes = 3 * C * (2 if bf16 else 4)
@@ -92,8 +163,7 @@ def launch_plan(G: int, nh: int, hd: int, bf16: bool, masked: bool,
                 and windows * n * (row_bytes + n * 4) < MAX_BULK_BYTES):
             break
     else:
-        raise ValueError(f"window attention: {nh} heads x {hd} channels "
-                         "need more shared memory than a block has")
+        return _grouped_plan(G, nh, hd, bf16, masked, num_sms)
     threads = 32 * min(windows * nh, MAX_THREADS // 32)
     per_sm = min(_build.SMEM_PER_SM
                  // (smem + _build.SMEM_RESERVED_PER_BLOCK),
@@ -187,7 +257,7 @@ def window_attention(qkv: torch.Tensor, bias: torch.Tensor,
             mask.data_ptr() if mask is not None else None,
             mask.shape[0] if mask is not None else 0, out.data_ptr(), G, nh,
             hd, float(scale), plan.windows, plan.stages, plan.threads,
-            plan.grid, plan.in_pitch, plan.out_pitch, plan.smem,
+            plan.grid, plan.in_pitch, plan.out_pitch, plan.smem, plan.heads,
             _build.stream_of(dev)), "window_attention")
     window_attention.launches += 1
     return out

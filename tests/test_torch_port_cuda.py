@@ -110,8 +110,11 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         codebook_argmin(z.double(), z.double())
     with pytest.raises(ValueError):
         codebook_argmin(z, torch.zeros(16, 8))          # codebook on the CPU
-    with pytest.raises(ValueError):
-        window_attention(torch.zeros(2, 16, 3 * 99, device=cuda),
+    with pytest.raises(ValueError):  # heads wider than MAX_HEAD_DIM
+        window_attention(torch.zeros(2, 16, 3 * 257, device=cuda),
+                         torch.zeros(1, 16, 16, device=cuda), None, 1, 1.0)
+    with pytest.raises(ValueError):  # C not a multiple of the heads
+        window_attention(torch.zeros(2, 16, 3 * 100, device=cuda),
                          torch.zeros(3, 16, 16, device=cuda), None, 3, 1.0)
 
 
@@ -170,6 +173,66 @@ def test_attention_kernel_geometries(rng, cuda, G, nh, hd, masked, dtype):
         atol=tol, rtol=1e-5 if dtype == torch.float32 else 5e-2)
 
 
+# widths the all-heads kernel cannot hold (one window of all heads over
+# shared memory, or heads wider than 32): heads split into groups
+WIDE_ATTENTION = [(300, 24, 32), (300, 16, 64), (300, 8, 128), (7, 8, 128),
+                  (301, 5, 40), (33, 2, 256), (9, 3, 33), (50, 7, 128)]
+
+
+@pytest.mark.parametrize("G,nh,hd", WIDE_ATTENTION)
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_kernel_wide_heads(rng, cuda, G, nh, hd, masked, dtype):
+    C = nh * hd
+    qkv = torch.tensor(rng.standard_normal((G, 16, 3 * C)),
+                       dtype=torch.float32, device=cuda).to(dtype)
+    bias = torch.tensor(rng.standard_normal((nh, 16, 16)),
+                        dtype=torch.float32, device=cuda)
+    mask = None
+    if masked:
+        nW = G // 4 if G % 4 == 0 else G
+        mask = torch.tensor(np.where(rng.random((nW, 16, 16)) > 0.5, 0.0,
+                                     -100.0), dtype=torch.float32,
+                            device=cuda)
+    n = window_attention.launches
+    ours = window_attention(qkv, bias, mask, nh, hd ** -0.5)
+    torch.cuda.synchronize()
+    assert window_attention.launches == n + 1
+    tol = 2e-5 if dtype == torch.float32 else 5e-2
+    torch.testing.assert_close(
+        ours, window_attention_plain(qkv, bias, mask, nh, hd ** -0.5),
+        atol=tol, rtol=1e-5 if dtype == torch.float32 else 5e-2)
+
+
+# codebooks larger than a block's shared memory stream through it in
+# K-tiles; K 4096 x d 8 fits whole
+@pytest.mark.parametrize("N,K,d", [(600, 1024, 64), (600, 1024, 128),
+                                   (7, 1024, 256), (4801, 4096, 8),
+                                   (600, 1024, 57), (601, 1023, 65),
+                                   (600, 8192, 8)])
+def test_argmin_kernel_k_tiles(rng, cuda, N, K, d):
+    z, cb = _normed(rng, (N, d), cuda), _normed(rng, (K, d), cuda)
+    ours = codebook_argmin(z, cb)
+    plain = codebook_argmin_plain(z, cb)
+    assert bool(((ours == plain) | _near_tie(z, cb)).all())
+    # an unaligned codebook takes plain loads in every tile
+    flat = torch.zeros(K * d + 1, device=cuda)
+    shifted = flat[1:].view(K, d)
+    shifted.copy_(cb)
+    assert torch.equal(codebook_argmin(z, shifted), ours)
+
+
+def test_argmin_kernel_k_tiles_ties_and_nan(rng, cuda):
+    # duplicates of a codeword in later tiles lose to the first; NaN -> 0
+    cb = _normed(rng, (1024, 64), cuda)
+    cb[700] = cb[3]
+    cb[1000] = cb[3]
+    z = torch.cat([cb[[3, 700, 1000, 999]],
+                   torch.full((2, 64), float("nan"), device=cuda)])
+    assert codebook_argmin(z, cb).tolist() == [3, 3, 3, 999, 0, 0]
+    assert codebook_argmin_plain(z, cb).tolist() == [3, 3, 3, 999, 0, 0]
+
+
 def test_attention_refuses_a_misaligned_qkv(cuda):
     G, nh, hd = 4, 3, 15
     flat = torch.zeros(G * 16 * 3 * nh * hd + 1, device=cuda)
@@ -193,3 +256,65 @@ def test_model_on_kernels_matches_plain_model(rng, cuda):
     assert float((pcodes != codes).float().mean()) <= 2e-3
     torch.testing.assert_close(plain.decode(codes, fs), recon, atol=5e-4,
                                rtol=0)
+
+
+def test_bf16_model_on_the_card(rng, cuda):
+    x = (0.1 * rng.standard_normal((2, 15920))).astype(np.float32)
+    m32 = ESC(seed=2, device=cuda, **SMALL)
+    m16 = ESC(seed=2, device=cuda, dtype=torch.bfloat16, **SMALL)
+    plain16 = ESC(seed=2, device=cuda, dtype=torch.bfloat16, plain_ops=True,
+                  **SMALL)
+    assert {p.dtype for p in m16.module.parameters()} == {torch.float32}
+    before = window_attention.launches
+    c16, fs, r16 = m16.roundtrip(x, num_streams=6)
+    torch.cuda.synchronize()
+    assert window_attention.launches > before
+    assert r16.dtype == torch.float32 and bool(torch.isfinite(r16).all())
+    c32, _ = m32.encode(x, num_streams=6)
+    agree = float((c16 == c32).float().mean())
+    assert agree >= 0.8, f"bf16/fp32 code agreement {agree:.2%}"
+    # the kernels against the plain versions, both in bf16
+    p16, _ = plain16.encode(x, num_streams=6)
+    assert float((p16 == c16).float().mean()) >= 0.95
+
+
+def test_chunked_codes_equal_the_plain_model(rng, cuda):
+    x = (0.1 * rng.standard_normal((1, 60 * 320 - 80))).astype(np.float32)
+    model = ESC(seed=2, device=cuda, **SMALL)
+    plain = ESC(seed=2, device=cuda, plain_ops=True, **SMALL)
+    kw = dict(chunk_seconds=0.5, margin_seconds=0.25)
+    codes, fs = model.encode_chunked(x, num_streams=6, **kw)
+    pcodes, pfs = plain.encode_chunked(x, num_streams=6, **kw)
+    assert fs == pfs and codes.device.type == "cuda"
+    assert float((pcodes != codes).float().mean()) <= 2e-3
+    recon = model.decode_chunked(codes, fs, **kw)
+    torch.testing.assert_close(plain.decode_chunked(codes, fs, **kw), recon,
+                               atol=5e-4, rtol=0)
+
+
+def test_stream_roundtrip_on_the_card(rng, cuda):
+    from esc_tpu_torch.serving import stream_roundtrip
+
+    model = ESC(seed=2, device=cuda, **SMALL)
+    batches = [(0.1 * rng.standard_normal((2, 7920))).astype(np.float32)
+               for _ in range(4)]
+    outs = list(stream_roundtrip(model, batches, num_streams=6, depth=2))
+    for x, (codes, recon) in zip(batches, outs):
+        c, _, r = model.roundtrip(x, num_streams=6)
+        assert np.array_equal(codes, c.cpu().numpy())
+        assert np.array_equal(recon, r.cpu().numpy())
+
+
+def test_range_coder_builds_and_round_trips(rng, cuda):
+    # the host's C++ compiler builds native/rangecoder.cpp on this machine
+    from esc_tpu_torch import rangecoder
+    from esc_tpu_torch.cli.bitstream import pack_codes, unpack_codes
+
+    path, _ = rangecoder.build()
+    assert path.exists()
+    probs = rng.dirichlet(np.full(1024, 0.03))
+    codes = rng.choice(1024, (2, 6, 3, 300), p=probs).astype(np.int32)
+    blob = pack_codes(codes, 1024, (2, 600))
+    assert blob[4] == 2
+    back, fs = unpack_codes(blob)
+    assert np.array_equal(back, codes) and fs == (2, 600)

@@ -40,11 +40,22 @@ def test_main_path_geometries_are_the_smoke_runs():
     assert got == set(MAIN_PATH_ATTENTION)
 
 
+# widths beyond one window of all heads in shared memory, or heads wider
+# than the all-heads kernel's registers take: heads split into groups
+WIDE = [(300, 24, 32), (300, 16, 64), (300, 8, 128), (7, 8, 128),
+        (301, 5, 40), (33, 2, 256), (9, 3, 33), (50, 7, 128)]
+
+
 @pytest.mark.parametrize("masked", [False, True])
 @pytest.mark.parametrize("bf16", [False, True])
 @pytest.mark.parametrize("G,nh,hd", MAIN_PATH_ATTENTION + RAGGED)
 def test_attention_plan(G, nh, hd, bf16, masked):
     p = wa.launch_plan(G, nh, hd, bf16, masked, NUM_SMS)
+    assert p.heads == 0 and p.groups == 1  # every head in one block
+    _check_all_heads_plan(p, G, nh, hd, bf16, masked)
+
+
+def _check_all_heads_plan(p, G, nh, hd, bf16, masked):
     n, C = wa.WINDOW_TOKENS, nh * hd
     # limits of one block
     assert p.smem <= MAX_SMEM
@@ -107,9 +118,63 @@ def test_attention_plan(G, nh, hd, bf16, masked):
     assert nwarps <= p.windows * nh
 
 
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("G,nh,hd", WIDE)
+def test_attention_plan_wide(G, nh, hd, bf16, masked):
+    p = wa.launch_plan(G, nh, hd, bf16, masked, NUM_SMS)
+    if p.heads == 0:  # one window of all heads fits after all
+        assert hd <= wa.MAX_REGISTER_HEAD_DIM
+        _check_all_heads_plan(p, G, nh, hd, bf16, masked)
+        return
+    n, elem = wa.WINDOW_TOKENS, 2 if bf16 else 4
+    # limits of one block, the kernel's layout of shared memory
+    assert p.smem <= MAX_SMEM
+    assert p.threads % 32 == 0 and 32 <= p.threads <= min(MAX_THREADS,
+                                                         wa.MAX_THREADS)
+    assert p.smem == wa._grouped_smem(p.windows, p.threads, p.in_pitch, nh,
+                                      hd, masked)
+    assert p.stages == 1 and p.out_pitch == 0
+    assert 1 <= p.heads <= nh and p.groups == -(-nh // p.heads)
+    # a buffer row holds the group's q, k and v segments, padded to 16
+    # bytes; every segment and head slice starts on a multiple of hd
+    assert p.in_pitch % 16 == 0 and p.in_pitch % 128 != 0
+    assert p.in_pitch >= 3 * p.heads * hd * elem
+    # the plain loads' unit divides every offset and length of a segment
+    unit = next(u for u in (16, 8, 4, 2) if (hd * elem) % u == 0)
+    C = nh * hd
+    for h0 in range(0, nh, p.heads):
+        seg = min(p.heads, nh - h0) * hd * elem
+        assert seg % unit == 0 and (h0 * hd * elem) % unit == 0
+    assert (3 * C * elem) % unit == 0 and (C * elem) % unit == 0
+    # persistent blocks cover every (window, head) pair exactly once
+    nwarps = p.threads // 32
+    assert nwarps <= p.windows * p.heads  # no warp idles on a full unit
+    assert p.tiles == -(-G // p.windows) and p.grid <= p.tiles * p.groups
+    pairs = []
+    for b in range(p.grid):
+        for u in range(b, p.tiles * p.groups, p.grid):
+            tile, grp = divmod(u, p.groups)
+            g0, h0 = tile * p.windows, grp * p.heads
+            nwin, hgl = min(p.windows, G - g0), min(p.heads, nh - h0)
+            for w in range(nwarps):
+                for q in range(w, nwin * hgl, nwarps):
+                    pairs.append((g0 + q // hgl, h0 + q % hgl))
+    assert sorted(pairs) == [(g, h) for g in range(G) for h in range(nh)]
+
+
+@pytest.mark.parametrize("nh,hd", [(24, 32), (16, 64), (8, 128)])
+def test_attention_plan_splits_heads_where_a_window_does_not_fit(nh, hd):
+    p = wa.launch_plan(300, nh, hd, False, True, NUM_SMS)
+    assert p.heads > 0 and p.groups > 1
+
+
 def test_attention_plan_refuses_what_shared_memory_cannot_hold():
+    # the padded bias of 256 heads alone exceeds a block's shared memory
     with pytest.raises(ValueError):
-        wa.launch_plan(300, 24, 32, False, False, NUM_SMS)
+        wa.launch_plan(300, 256, 8, False, False, NUM_SMS)
+    with pytest.raises(ValueError):
+        wa.launch_plan(300, 2, wa.MAX_HEAD_DIM + 1, False, False, NUM_SMS)
 
 
 @pytest.mark.parametrize("d", [6, 8, 12, 16, 32])
@@ -117,22 +182,49 @@ def test_attention_plan_refuses_what_shared_memory_cannot_hold():
 @pytest.mark.parametrize("N", [1, 7, 600, 1200, 4801])
 def test_argmin_plan(N, K, d):
     p = am.launch_plan(N, K, d, NUM_SMS)
+    assert p.k_tile == K  # the whole codebook in one tile
+    _check_argmin_plan(p, N, K, d)
+
+
+def _check_argmin_plan(p, N, K, d):
     assert p.smem <= MAX_SMEM
+    assert p.smem == am.smem_bytes(p.k_tile, d, p.rows)
     assert p.threads % 32 == 0 and 32 <= p.threads <= min(MAX_THREADS,
                                                          am.MAX_THREADS)
     assert 1 <= p.rows <= am.max_rows(d)
-    # the codebook: one bulk copy of its 16-byte whole into the start of
-    # shared memory, the tail by plain loads
+    # the codebook in tiles of k_tile codewords, each one bulk copy of its
+    # 16-byte whole into the start of shared memory, the tail by plain
+    # loads; every tile starts on 16 bytes
+    assert 1 <= p.k_tile <= K and (p.k_tile == K or p.k_tile % 4 == 0)
     assert p.bulk_bytes % 16 == 0
-    assert 0 <= K * d * 4 - p.bulk_bytes < 16
+    assert 0 <= p.k_tile * d * 4 - p.bulk_bytes < 16
+    assert all((t0 * d * 4) % 16 == 0 for t0 in range(0, K, p.k_tile))
     # every row exactly once, no empty block
     rows = [b * p.rows + r for b in range(p.grid) for r in range(p.rows)
             if b * p.rows + r < N]
     assert rows == list(range(N))
     assert (p.grid - 1) * p.rows < N
-    # every codeword scanned by exactly one thread
-    ks = sorted(k for t in range(p.threads) for k in range(t, K, p.threads))
-    assert ks == list(range(K))
+    # every codeword scanned by exactly one thread, in increasing order
+    # per thread across the tiles
+    seen = {t: [] for t in range(p.threads)}
+    for t0 in range(0, K, p.k_tile):
+        nk = min(p.k_tile, K - t0)
+        for t in range(p.threads):
+            seen[t].extend(t0 + j for j in range(t, nk, p.threads))
+    assert all(v == sorted(v) for v in seen.values())
+    assert sorted(k for v in seen.values() for k in v) == list(range(K))
+
+
+@pytest.mark.parametrize("N,K,d", [(600, 1024, 64), (600, 1024, 128),
+                                   (600, 1024, 256), (4801, 1024, 64),
+                                   (600, 4096, 8), (1, 4096, 8),
+                                   (600, 1024, 57), (601, 1023, 65),
+                                   (600, 8192, 8), (7, 1024, 256)])
+def test_argmin_plan_k_tiles(N, K, d):
+    p = am.launch_plan(N, K, d, NUM_SMS)
+    fits = am.smem_bytes(K, d, p.rows) <= MAX_SMEM
+    assert (p.k_tile == K) == fits
+    _check_argmin_plan(p, N, K, d)
 
 
 def test_argmin_plan_fills_the_card_at_the_main_path_shape():
@@ -141,5 +233,6 @@ def test_argmin_plan_fills_the_card_at_the_main_path_shape():
 
 
 def test_argmin_plan_refuses_what_shared_memory_cannot_hold():
+    # not even 4 codewords of 60,000 floats fit
     with pytest.raises(ValueError):
-        am.launch_plan(600, 8192, 8, NUM_SMS)
+        am.launch_plan(600, 1024, 60000, NUM_SMS)
