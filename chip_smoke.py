@@ -29,12 +29,27 @@ Phases, each ending with one line that carries its seconds:
             fp32 paths against the plain versions
 3d. serving stream_roundtrip over 8 batches at depth 2 against the serial
             loop
-4. profile  device time by kernel over one roundtrip (torch.profiler), then
-            each kernel's, its plain version's and the library call's
-            device time at the shapes of phase 2
+5. eval     python -m esc_tpu_torch.cli.test as a subprocess on 4 generated
+            clips of 2-4 s with configs/9kbps_esc_base.yaml and a model.pth
+            (perf_stats.json in the JAX package's layout, every value
+            finite), then eval_epoch in this process over num_streams 1-6:
+            launch counts as predicted, Mel distance and SI-SDR against the
+            same sweep on the plain versions, codes of the eval forward
+            against the plain model's; eval seconds per audio second
+6. train    python -m esc_tpu_torch.cli.train as a subprocess for 4 steps
+            of ESC-Base (one freeze step, the renewal, two evaluations):
+            finite logged losses, pretrained/best/checkpoint.ckpt that load;
+            then 20 steps in this process on one fixed batch: the loss
+            falls, no kernel launches, and both kernels launch in the
+            evaluation; steps per second and peak memory
+4. profile  device time by kernel over one roundtrip and one training step
+            (torch.profiler), then each kernel's, its plain version's and
+            the library call's device time at the shapes of phase 2
 
-Each path of phases 3-3d is driven with the launch counts set to 0 just
-before it and read just after; every kernel must have run in it.
+Phases 5 and 6 run before phase 4: a profiler session slows the host's
+later launches in the same process. Each path of phases 3-6 is driven with
+the launch counts set to 0 just before it and read just after; every kernel
+must have run in it (in phase 6's training steps, none may).
 
 The second-to-last line is the kernels' JSON summary, the last
 {"ok": true, "device": {...}}. Any failed check raises: the script then
@@ -95,7 +110,21 @@ PAIRS = 3                   # timed pairs of two variants, order alternating
 CLI_SECONDS = 25
 CLI_CHUNK_SECONDS = 10
 STREAM_BATCHES, STREAM_DEPTH = 8, 2
+# phase 5: clips of unequal length, one padded batch, the CLI's batch size
+EVAL_SECONDS = (2.0, 2.6, 3.3, 4.0)
+EVAL_BATCH = 4
+# Mel distance and SI-SDR of the kernels' sweep against the plain one: the
+# zero padding's codes are near ties (its residuals are almost nothing), so
+# they may differ and reach a few frames into an utterance, which the
+# untrained model's SI-SDR near -40 dB magnifies (the same bar as
+# tests/test_torch_port_eval.py's between the frameworks)
+EVAL_MEL_RTOL, EVAL_SISDR_RTOL = 1e-3, 1e-2
+# phase 6: 2 s clips (grid-exact after the loader's 80-sample trim), one
+# batch of 2 an epoch: epoch 1 is the freeze step
+TRAIN_SAMPLES, TRAIN_BATCH, TRAIN_EPOCHS = 32000, 2, 4
+FIXED_BATCH_STEPS, FIXED_BATCH_LR = 20, 3e-4
 ROOT = Path(__file__).resolve().parent
+ESC_BASE_YAML = ROOT / "configs" / "9kbps_esc_base.yaml"  # as published
 
 
 def phase(name: str, t0: float, msg: str = "") -> float:
@@ -195,8 +224,11 @@ def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
 
 
 # ------------------------------------------------ the main path's calls
-def main_path_calls(cfg: dict, batch: int, length: int, num_streams: int):
-    """The kernel calls of one ``roundtrip(x, num_streams)``: a list of
+def main_path_calls(cfg: dict, batch: int, length: int, num_streams: int,
+                    forward: bool = False):
+    """The kernel calls of one ``roundtrip(x, num_streams)``, or with
+    ``forward`` of one eval forward ``model(x, num_streams=...)`` (the
+    encoder, then the decoder once, quantizing as it goes): a list of
     argmin shapes (N, K, d) and of attention shapes (G, nh, hd, masked)."""
     hop = int(cfg["hop_len"] * cfg["sr"] * 1e-3)
     ws, depth = cfg["window_size"], cfg["swin_depth"]
@@ -216,7 +248,7 @@ def main_path_calls(cfg: dict, batch: int, length: int, num_streams: int):
     for i in range(len(h) - 1):                     # encoder blocks
         layer(enc_H[i], h[i], heads[i])
     dec_h, dec_heads, dec_H = h[::-1], heads[::-1], enc_H[::-1]
-    for i in range(num_streams - 2):                # decoder.encode's blocks
+    for i in range(0 if forward else num_streams - 2):  # decoder.encode's
         layer(dec_H[i], dec_h[i], dec_heads[i])
     for i in range(len(h) - 1):                     # decoder.decode's blocks
         layer(dec_H[i], dec_h[i], dec_heads[i])
@@ -314,7 +346,7 @@ def check_argmin(kern, rng, dev, extra=()):
         raise RuntimeError(f"codebook_argmin all-NaN rows gave {nan.tolist()}")
     print(f"  codebook_argmin: {checked} rows in {len(cases)} shapes (N 1 "
           f"to 4801, K 128 to 4096, d 6..32, K-tiled {ARGMIN_WIDE}, and "
-          f"the 25 s file's {sorted(set(extra))}): "
+          f"the other paths' {sorted(set(extra))}): "
           f"{excused} differ, all near ties (float64 gap <= {NEAR_TIE}); "
           f"duplicate rows -> {dup}; all-NaN rows -> 0; max |dist diff| "
           f"{max_err:.3g}", flush=True)
@@ -468,17 +500,20 @@ def time_wide(kern, rng, dev) -> dict:
 
 
 # ------------------------------------------------------------- phase 3
-def counted(kern, what: str, fn):
+def counted(kern, what: str, fn, ran: bool = True):
     """Run ``fn`` with every launch count set to 0 just before and read
-    just after; raise unless every kernel ran. Returns (result, counts)."""
+    just after; raise unless every kernel ran (with ``ran=False``: unless
+    none did). Returns (result, counts)."""
     for wrapper, _ in kern.values():
         wrapper.launches = 0
     result = fn()
     torch.cuda.synchronize()
     counts = {name: wrapper.launches for name, (wrapper, _) in kern.items()}
     print(f"  launches on {what}: {counts}", flush=True)
-    if min(counts.values()) == 0:
+    if ran and min(counts.values()) == 0:
         raise RuntimeError(f"a kernel never ran on {what}: {counts}")
+    if not ran and max(counts.values()) != 0:
+        raise RuntimeError(f"a kernel ran on {what}: {counts}")
     return result, counts
 
 
@@ -545,20 +580,6 @@ def paired(variants: dict) -> dict:
     return out
 
 
-def run_cli(args, tmp):
-    """``python -m esc_tpu_torch.cli.compress`` in a subprocess; returns
-    (its standard output, its wall seconds)."""
-    start = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "esc_tpu_torch.cli.compress",
-                           *args], cwd=ROOT, capture_output=True, text=True,
-                          timeout=600)
-    wall = time.perf_counter() - start
-    if proc.returncode != 0:
-        raise RuntimeError(f"compress CLI {args} exited {proc.returncode}:\n"
-                           f"{proc.stdout}{proc.stderr}")
-    return proc.stdout, wall
-
-
 def check_cli(kern, dev, rng, tmp, chunked_calls):
     """Phase 3c: the compress CLI as a user runs it, twice, on a model
     directory holding config.yaml and a model.pth; then the whole-file and
@@ -568,16 +589,8 @@ def check_cli(kern, dev, rng, tmp, chunked_calls):
     from esc_tpu_torch.cli.compress import compress_file, load_model
     from esc_tpu_torch.io import load_wav, save_wav
     from esc_tpu_torch.models import make_model
-    from esc_tpu_torch.utils.config import read_yaml
 
-    model_dir = Path(tmp) / "esc_base"
-    model_dir.mkdir()
-    shutil.copy(ROOT / "configs" / "9kbps_esc_base.yaml",
-                model_dir / "config.yaml")
-    cfg = read_yaml(str(model_dir / "config.yaml"))
-    src = make_model(cfg["model"], cfg["model_name"], seed=SEED + 1,
-                     device="cpu")
-    torch.save(src.state_dict(), model_dir / "model.pth")
+    model_dir, cfg, weights = model_dir_with(Path(tmp), "esc_base", SEED + 1)
     wav = Path(tmp) / "long.wav"
     L = CLI_SECONDS * ESC_BASE["sr"]
     save_wav(str(wav), (0.1 * rng.standard_normal(L)).astype(np.float32))
@@ -587,9 +600,9 @@ def check_cli(kern, dev, rng, tmp, chunked_calls):
     results = {}
     for label, extra in runs.items():
         out_dir = Path(tmp) / label.replace(" ", "_")
-        said, wall = run_cli(["--input", str(wav), "--model_path",
-                              str(model_dir), "--save_path", str(out_dir),
-                              "--num_streams", "6", *extra], tmp)
+        said, wall = run_module("esc_tpu_torch.cli.compress", [
+            "--input", str(wav), "--model_path", str(model_dir),
+            "--save_path", str(out_dir), "--num_streams", "6", *extra])
         if "model.pth" not in said:
             raise RuntimeError(f"compress CLI ({label}) did not load "
                                f"model.pth:\n{said}")
@@ -616,7 +629,7 @@ def check_cli(kern, dev, rng, tmp, chunked_calls):
     model = load_model(str(model_dir), device=dev)
     plain = make_model(cfg["model"], cfg["model_name"], device=dev,
                        plain_ops=True)
-    plain.load_state_dict(src.state_dict())
+    plain.load_state_dict(weights)
     whole_plain, _ = plain.encode(x, num_streams=6)
     mismatch = {"whole": float((whole_plain.cpu().numpy() != c32).mean())}
     chunk = model.encode_chunked(x, 6, CLI_CHUNK_SECONDS)
@@ -757,6 +770,329 @@ def check_main_path(model, plain_model, x, out, cli, tmp):
           f"to the .npy codes {blob_codes.shape}", flush=True)
 
 
+# ------------------------------------------------------- phases 5 and 6
+def speech_like(rng, n: int, f0: float) -> np.ndarray:
+    """Harmonics of ``f0`` with a gliding pitch under a syllable-rate
+    envelope, plus noise: float32 of ``n`` samples."""
+    t = np.arange(n) / ESC_BASE["sr"]
+    phase = 2 * np.pi * f0 * (t + 0.05 * np.sin(2 * np.pi * 0.7 * t))
+    x = sum(np.sin(k * phase + rng.uniform(0, 2 * np.pi)) / k
+            for k in range(1, 9))
+    env = 0.25 + 0.75 * np.sin(2 * np.pi * 2.5 * t + rng.uniform(0, 3)) ** 2
+    return (0.12 * env * x + 0.005 * rng.standard_normal(n)).astype(
+        np.float32)
+
+
+def eval_shapes(cfg: dict) -> tuple:
+    """Phase 5's padded eval batch: (batch, length after the trim and the
+    codec-grid padding)."""
+    from esc_tpu_torch.io import esc_pad_length
+
+    hop = int(cfg["hop_len"] * cfg["sr"] * 1e-3)
+    longest = int(max(EVAL_SECONDS) * cfg["sr"]) - 80
+    return EVAL_BATCH, esc_pad_length(longest, hop, cfg["patch_size"][1])
+
+
+def eval_calls(cfg: dict):
+    """The kernel calls of phase 5's sweep (one batch, num_streams 1-6) and
+    of phase 6's evaluation (one validation batch at num_streams 6)."""
+    B, L = eval_shapes(cfg)
+    sweep = [main_path_calls(cfg, B, L, ns, forward=True)
+             for ns in range(1, cfg["max_streams"] + 1)]
+    val = main_path_calls(cfg, TRAIN_BATCH, TRAIN_SAMPLES - 80,
+                          cfg["max_streams"], forward=True)
+    return sweep, val
+
+
+def model_dir_with(tmp: Path, name: str, seed: int):
+    """A model directory as a user keeps one: ESC-Base's config.yaml and a
+    model.pth of random weights from ``seed``. Returns (dir, config,
+    weights)."""
+    from esc_tpu_torch.models import make_model
+    from esc_tpu_torch.utils.config import read_yaml
+
+    d = tmp / name
+    d.mkdir()
+    shutil.copy(ESC_BASE_YAML, d / "config.yaml")
+    cfg = read_yaml(str(d / "config.yaml"))
+    weights = make_model(cfg["model"], cfg["model_name"], seed=seed,
+                         device="cpu").state_dict()
+    torch.save(weights, d / "model.pth")
+    return d, cfg, weights
+
+
+def run_module(module: str, args, timeout: int = 600):
+    """``python -m module args`` in a subprocess; returns (its standard
+    output, its wall seconds)."""
+    start = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", module, *args], cwd=ROOT,
+                          capture_output=True, text=True, timeout=timeout)
+    wall = time.perf_counter() - start
+    if proc.returncode != 0:
+        raise RuntimeError(f"{module} {args} exited {proc.returncode}:\n"
+                           f"{proc.stdout}{proc.stderr}")
+    return proc.stdout, wall
+
+
+PERF_KEYS = ["PESQ", "MelDistance", "SISDR", "STOI", "utilization"]
+
+
+def check_eval(kern, dev, rng, tmp: Path, sweep_calls) -> dict:
+    """Phase 5: the test CLI as a user runs it, then the sweep in this
+    process on the kernels and on the plain versions."""
+    from esc_tpu_torch.cli.compress import load_model
+    from esc_tpu_torch.io import save_wav
+    from esc_tpu_torch.metrics import (PESQ, SISDR, STOI, EntropyCounter,
+                                       MelSpectrogramDistance)
+    from esc_tpu_torch.models import make_model
+    from esc_tpu_torch.train.data import make_dataloader
+    from esc_tpu_torch.train.evaluate import eval_epoch
+
+    model_dir, cfg, weights = model_dir_with(tmp, "esc_base_eval", SEED + 2)
+    wavs = tmp / "eval_wavs"
+    wavs.mkdir()
+    for i, sec in enumerate(EVAL_SECONDS):
+        save_wav(str(wavs / f"utt_{i}.wav"),
+                 speech_like(rng, int(sec * ESC_BASE["sr"]), 95.0 + 45 * i))
+    out_dir = tmp / "eval_out"
+    said, cli_s = run_module("esc_tpu_torch.cli.test", [
+        "--eval_folder_path", str(wavs), "--model_path", str(model_dir),
+        "--batch_size", str(EVAL_BATCH), "--num_streams", "6",
+        "--save_path", str(out_dir)])
+    if "model.pth" not in said:
+        raise RuntimeError(f"test CLI did not load model.pth:\n{said}")
+    stats = json.loads((out_dir / "perf_stats.json").read_text())
+    if list(stats) != PERF_KEYS or any(
+            len(v) != 1 or not np.isfinite(v[0]) for v in stats.values()):
+        raise RuntimeError(f"perf_stats.json: {stats}")
+    print(f"  test CLI ({cli_s:.2f} s, process start included): "
+          f"perf_stats.json at 9 kbps {stats}", flush=True)
+
+    m = cfg["model"]
+    model = load_model(str(model_dir), device=dev)
+    plain = make_model(m, cfg["model_name"], device=dev, plain_ops=True)
+    plain.load_state_dict(weights)
+    loader = make_dataloader(str(wavs), EVAL_BATCH, False, pad_eval=True,
+                             pad_fn=model.pad_length)
+    (x, lengths), = list(loader)
+    if (len(x), x.shape[1]) != eval_shapes(m):
+        raise RuntimeError(f"eval batch {x.shape}, phase 2 checked "
+                           f"{eval_shapes(m)}")
+
+    metric_s = {}
+
+    def timed(name, fn):
+        """``fn`` with its seconds added to ``metric_s[name]``; the card
+        is synchronised first, so the forward's time is not the metric's."""
+        def call(*a):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            out = fn(*a)
+            metric_s[name] = metric_s.get(name, 0.0) + (
+                time.perf_counter() - start)
+            return out
+        return call
+
+    def sweep(codec):
+        metrics = {"PESQ": PESQ(), "MelDistance": MelSpectrogramDistance(),
+                   "SISDR": SISDR(), "STOI": STOI()}
+        counter = EntropyCounter(m["codebook_size"], m["max_streams"],
+                                 m["group_size"])
+        return eval_epoch(codec, loader, {k: timed(k, fn) for k, fn in
+                                          metrics.items()}, counter,
+                          verbose=False)
+
+    model(x, num_streams=6)                     # warm-up, not counted
+    start = time.perf_counter()
+    perf, launches = counted(kern, "the eval sweep", lambda: sweep(model))
+    sweep_s = time.perf_counter() - start
+    split = {k: round(v, 4) for k, v in metric_s.items()}
+    split["the rest (forward, codes, host)"] = round(
+        sweep_s - sum(metric_s.values()), 4)
+    want = {"codebook_argmin": sum(len(a) for a, _ in sweep_calls),
+            "window_attention": sum(len(t) for _, t in sweep_calls)}
+    if launches != want:
+        raise RuntimeError(f"eval sweep launches {launches}, predicted "
+                           f"{want}")
+    ref = sweep(plain)
+    for key, rtol in (("MelDistance", EVAL_MEL_RTOL),
+                      ("SISDR", EVAL_SISDR_RTOL)):
+        if not np.allclose(perf[key], ref[key], rtol=rtol, atol=2e-4):
+            raise RuntimeError(f"eval {key}: kernels {perf[key]}, plain "
+                               f"{ref[key]} (rtol {rtol})")
+    if any(not np.isfinite(v).all() for v in perf.values()):
+        raise RuntimeError(f"eval sweep: a value is not finite: {perf}")
+    # codes of the utterances' own frames, kernels against plain
+    spc = model._samples_per_code()
+    mismatch = {}
+    xd = torch.as_tensor(x, device=dev)
+    for ns in range(1, m["max_streams"] + 1):
+        a = model(xd, num_streams=ns)["codes"]
+        b = plain(xd, num_streams=ns)["codes"]
+        own = torch.arange(a.shape[-1], device=dev)[None, :] < torch.as_tensor(
+            -(-lengths // spc), device=dev)[:, None]
+        diff = (a != b) & own[:, None, None, :]
+        mismatch[ns] = float(diff.sum()) / float(own.sum() * ns
+                                                 * a.shape[2])
+    if max(mismatch.values()) > CODE_MISMATCH_MAX:
+        raise RuntimeError(f"eval forward codes differ from the plain "
+                           f"model's on {mismatch}")
+    audio_s = float(lengths.sum()) / ESC_BASE["sr"] * m["max_streams"]
+    per_audio_s = sweep_s / audio_s
+    print(f"  eval sweep ns 1-6 on {EVAL_BATCH} clips of {EVAL_SECONDS} s "
+          f"(one batch padded to {x.shape[1]}): launches {launches} as "
+          f"predicted; kernels {perf}; plain MelDistance {ref['MelDistance']}"
+          f", SISDR {ref['SISDR']}; codes of the utterances' frames differ "
+          f"from the plain model's: " + ", ".join(
+              f"ns={ns} {v:.4%}" for ns, v in mismatch.items())
+          + " (<= 0.2%)", flush=True)
+    print(f"  eval sweep seconds by part: {split}", flush=True)
+    print(f"eval: {per_audio_s:.5f} s per audio second ({sweep_s:.2f} s for "
+          f"{audio_s:.1f} s of audio over 6 bitrates, PESQ and STOI on the "
+          f"host included)", flush=True)
+    return {"perf_stats_cli": stats, "sweep": perf, "launches": launches,
+            "s_per_audio_s": per_audio_s, "sweep_s": split, "cli_s": cli_s,
+            "code_mismatch": mismatch}
+
+
+def _loss_lines(text: str) -> list:
+    """The losses of each ``[step n/N ...] k: v | ...`` line of a log."""
+    import re
+    lines = []
+    for line in text.splitlines():
+        m = re.match(r"\[step (\d+)/\d+ \d+s\] (.*)", line)
+        if m:
+            lines.append({k.strip(): float(v) for k, v in (
+                kv.split(":") for kv in m.group(2).split("|"))
+                if k.strip().endswith("loss")})
+    return lines
+
+
+def check_train(kern, dev, rng, tmp: Path, val_calls) -> dict:
+    """Phase 6: the train CLI as a user runs it, a few steps across the
+    pretraining switch; then steps on one fixed batch in this process."""
+    import argparse
+
+    from esc_tpu_torch.checkpoint import load_model_state
+    from esc_tpu_torch.cli.compress import load_model
+    from esc_tpu_torch.io import save_wav
+    from esc_tpu_torch.train.trainer import Trainer
+    from esc_tpu_torch.utils.config import read_yaml, write_yaml
+
+    cfg = read_yaml(str(ESC_BASE_YAML))
+    folders = {}
+    for split, f0 in (("train", 110.0), ("val", 170.0)):
+        folders[split] = tmp / f"{split}_wavs"
+        folders[split].mkdir()
+        for i in range(TRAIN_BATCH):
+            save_wav(str(folders[split] / f"utt_{i}.wav"),
+                     speech_like(rng, TRAIN_SAMPLES, f0 + 60 * i))
+    cfg["data"] = {"train_data_path": str(folders["train"]),
+                   "val_data_path": str(folders["val"]), "num_workers": 2,
+                   "train_bs_per_device": TRAIN_BATCH,
+                   "val_bs_per_device": TRAIN_BATCH}
+    write_yaml(str(tmp / "train.yaml"), cfg)
+    out = tmp / "runs"
+    said, cli_s = run_module("esc_tpu_torch.cli.train", [
+        "--config_path", str(tmp / "train.yaml"), "--exp_name", "smoke",
+        "--num_epochs", str(TRAIN_EPOCHS), "--num_pretraining_epochs", "1",
+        "--dropout_rate", "0.5", "--log_steps", "1", "--save_path", str(out),
+        "--seed", str(SEED), "--val_metric", "SISDR"])
+    logged = _loss_lines(said)
+    if len(logged) != TRAIN_EPOCHS or not all(
+            np.isfinite(v) for line in logged for v in line.values()):
+        raise RuntimeError(f"train CLI logged {logged}:\n{said}")
+    for word in ("Optimizer Renewed", "Performance at 9.00kbps",
+                 "checkpoint saved as pretrained.ckpt"):
+        if word not in said:
+            raise RuntimeError(f"train CLI never said {word!r}:\n{said}")
+    exp = out / "smoke"
+    for tag in ("pretrained.ckpt", "best.ckpt", "checkpoint.ckpt"):
+        d = tmp / f"load_{tag}"
+        d.mkdir()
+        shutil.copy(exp / "config.yaml", d / "config.yaml")
+        shutil.copy(exp / tag, d / tag)
+        load_model(str(d), device=dev)          # strict: every weight
+        load_model_state(str(exp / tag))
+    print(f"  train CLI ({cli_s:.2f} s, process start included): "
+          f"{len(logged)} steps, losses {logged}; pretrained, best and "
+          f"checkpoint.ckpt load into the port's load_model", flush=True)
+
+    args = argparse.Namespace(
+        exp_name="in_process", lr=FIXED_BATCH_LR, num_epochs=1,
+        num_pretraining_epochs=0, num_warmup_steps=0, val_metric="SISDR",
+        scheduler_type="constant", dropout_rate=0.0, pretrain_ckp=None,
+        log_steps=5, save_path=str(out), seed=SEED, resume=False,
+        device=str(dev))
+    trainer = Trainer(cfg, args)
+    trainer.model, _, trainer.val_dl = trainer.load()
+    x = np.stack([speech_like(rng, TRAIN_SAMPLES - 80, 130.0 + 50 * i)
+                  for i in range(TRAIN_BATCH)])
+    trainer.train_step(x, 6, False)             # warm-up, not counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def steps():
+        start = time.perf_counter()
+        losses = [trainer.train_step(x, 6, False)["loss"]
+                  for _ in range(FIXED_BATCH_STEPS)]
+        torch.cuda.synchronize()
+        return [float(v) for v in losses], time.perf_counter() - start
+
+    (losses, steps_s), _ = counted(
+        kern, f"{FIXED_BATCH_STEPS} training steps", steps, ran=False)
+    peak = torch.cuda.max_memory_allocated()
+    if not (np.isfinite(losses).all() and np.mean(losses[-5:])
+            < np.mean(losses[:5]) and losses[-1] < losses[0]):
+        raise RuntimeError(f"the loss did not fall on a fixed batch: "
+                           f"{losses}")
+    _, launches = counted(kern, "the trainer's evaluation",
+                          lambda: trainer.evaluate(FIXED_BATCH_STEPS))
+    want = {"codebook_argmin": len(val_calls[0]),
+            "window_attention": len(val_calls[1])}
+    if launches != want:
+        raise RuntimeError(f"evaluation launches {launches}, predicted "
+                           f"{want}")
+    rate = FIXED_BATCH_STEPS / steps_s
+    print(f"  {FIXED_BATCH_STEPS} steps on one batch of {TRAIN_BATCH} x "
+          f"{(TRAIN_SAMPLES - 80) / 16000:.3f} s at lr {FIXED_BATCH_LR}: "
+          f"loss {losses[0]:.4f} -> {losses[-1]:.4f} ({losses}); the "
+          f"evaluation launched {launches} as predicted", flush=True)
+    print(f"train: {rate:.3f} steps per second, peak memory "
+          f"{peak / 2 ** 30:.3f} GiB (ESC-Base, batch {TRAIN_BATCH} x 2 s, "
+          f"fp32, TF32 off)", flush=True)
+    summary = {"cli_losses": logged, "cli_s": cli_s, "losses": losses,
+               "steps_per_s": rate, "peak_bytes": peak,
+               "eval_launches": launches}
+    return summary, lambda: trainer.train_step(x, 6, False)
+
+
+def profile_once(what: str, fn) -> None:
+    """Wall time, device busy time and the top kernels of one ``fn()``
+    after a warm-up, by ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+    events = [e for e in prof.key_averages() if _on_device(e)]
+    dev_us = sum(e.self_device_time_total for e in events)
+    if dev_us <= 0:
+        print(f"  {what}: the profiler recorded no device time: not "
+              "measured", flush=True)
+        return
+    print(f"  {what}: wall {wall * 1e3:.2f} ms, device busy "
+          f"{dev_us / 1e3:.2f} ms ({dev_us / 1e3 / (wall * 1e3):.1%}), "
+          f"{sum(e.count for e in events)} kernel launches", flush=True)
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
+        print(f"    {e.self_device_time_total / 1e3:8.3f} ms "
+              f"x{e.count:<4d} {e.key[:90]}", flush=True)
+
+
 def time_kernels(kern, rng, dev, clock):
     """Both kernels by ``clock`` at the calls of one roundtrip at ns 6."""
     argmin_calls, attn_calls = main_path_calls(ESC_BASE, BATCH, CLIP, 6)
@@ -829,15 +1165,24 @@ def main() -> int:
     rng = np.random.default_rng(SEED)
     argmin_calls, attn_calls = main_path_calls(ESC_BASE, BATCH, CLIP, 6)
     attn_shapes = sorted({(G, nh, hd) for G, nh, hd, _ in attn_calls})
-    # phase 3c's 25 s file: its whole-file and chunked calls, batch 1
-    whole, chunked = cli_calls(read_yaml(str(
-        ROOT / "configs" / "9kbps_esc_base.yaml"))["model"])
-    argmin_err = check_argmin(KERNELS, rng, dev, whole[0] + chunked[0])
-    attn_err = check_attention(KERNELS, rng, dev,
-                               attn_shapes + ATTN_RAGGED + ATTN_WIDE)
+    # phase 3c's 25 s file: its whole-file and chunked calls, batch 1;
+    # phase 5's eval batch at every num_streams and phase 6's validation
+    # batch, with the published config (codebook dims 32 to 6)
+    published = read_yaml(str(ESC_BASE_YAML))["model"]
+    whole, chunked = cli_calls(published)
+    sweep_calls, val_calls = eval_calls(published)
+    sweep_argmin = [c for a, _ in sweep_calls for c in a]
+    sweep_attn = {(G, nh, hd) for _, t in sweep_calls for G, nh, hd, _ in t}
+    argmin_err = check_argmin(KERNELS, rng, dev, whole[0] + chunked[0]
+                              + sweep_argmin + val_calls[0])
+    attn_err = check_attention(KERNELS, rng, dev, attn_shapes + ATTN_RAGGED
+                               + ATTN_WIDE + sorted(sweep_attn))
     attn_err = max(attn_err, check_attention(
         KERNELS, rng, dev, sorted({(G, nh, hd) for G, nh, hd, _ in
                                    whole[1] + chunked[1]}), batch=1))
+    attn_err = max(attn_err, check_attention(
+        KERNELS, rng, dev, sorted({(G, nh, hd) for G, nh, hd, _ in
+                                   val_calls[1]}), batch=TRAIN_BATCH))
     # call times here, device times in phase 4: a profiler session slows
     # the host's later launches, which would show in phase 3
     timing = time_kernels(KERNELS, rng, dev, "call")
@@ -898,27 +1243,17 @@ def main() -> int:
     t0 = phase("3c cli", t0, "the compress CLI ok, fp32 and bf16 chunked")
     serving = check_serving(KERNELS, model, rng)
     t0 = phase("3d serving", t0, "stream_roundtrip ok")
+    with tempfile.TemporaryDirectory() as tmp:
+        evaluation = check_eval(KERNELS, dev, rng, Path(tmp), sweep_calls)
+    t0 = phase("5 eval", t0, "the test CLI and the eval sweep ok")
+    with tempfile.TemporaryDirectory() as tmp:
+        training, train_step = check_train(KERNELS, dev, rng, Path(tmp),
+                                           val_calls)
+    t0 = phase("6 train", t0, "the train CLI and training steps ok")
 
-    from torch.profiler import ProfilerActivity, profile
-    model.roundtrip(x, num_streams=6)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        start = time.perf_counter()
-        model.roundtrip(x, num_streams=6)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - start
-    events = [e for e in prof.key_averages() if _on_device(e)]
-    dev_us = sum(e.self_device_time_total for e in events)
-    if dev_us > 0:
-        print(f"  one roundtrip: wall {wall * 1e3:.2f} ms, device busy "
-              f"{dev_us / 1e3:.2f} ms ({dev_us / 1e3 / (wall * 1e3):.1%})",
-              flush=True)
-        for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
-            print(f"    {e.self_device_time_total / 1e3:8.3f} ms "
-                  f"x{e.count:<4d} {e.key[:90]}", flush=True)
-    else:
-        print("  profiler recorded no device time: not measured", flush=True)
+    for what, fn in (("one roundtrip", lambda: model.roundtrip(
+            x, num_streams=6)), ("one training step (phase 6)", train_step)):
+        profile_once(what, fn)
     for name, tm in time_kernels(KERNELS, rng, dev, "device").items():
         timing[name].update(tm)
     wide = time_wide(KERNELS, rng, dev)
@@ -946,13 +1281,15 @@ def main() -> int:
             "plain_ms": tm["plain_ms"], "plain_call_ms": tm["plain_call_ms"],
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": tm["library_ms"],
-            "library_call_ms": tm["library_call_ms"], "wide": wide[name]})
+            "library_call_ms": tm["library_call_ms"], "wide": wide[name],
+            "eval_launches": evaluation["launches"][name]})
     print(json.dumps({"paths": {
         "bf16_code_agreement": bf16_agree, "real_time_factor": {
             "fp32_plain": rtf["plain"], "fp32_kernels": rtf["kernels"],
             **{f"{k}_phase_3b": v for k, v in bf16_rtf.items()},
             **{f"stream_{k}": v for k, v in serving.items()}},
-        "cli": cli_run}}), flush=True)
+        "cli": cli_run, "eval": evaluation, "train": training}}),
+        flush=True)
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

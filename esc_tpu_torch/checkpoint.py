@@ -1,6 +1,8 @@
-"""Reading the JAX package's ``.ckpt`` checkpoints without flax or msgpack.
+"""The JAX package's ``.ckpt`` checkpoints, read and written without flax or
+msgpack.
 
-Port of the read side of ``esc_tpu/checkpoint.py`` (``load_checkpoint``).
+Port of ``esc_tpu/checkpoint.py`` (``load_checkpoint``,
+``save_checkpoint``).
 A ``.ckpt`` is one msgpack document as ``flax.serialization.
 msgpack_serialize`` writes it: maps with str keys, arrays, str and bin, ints,
 floats, nil and bools, and msgpack extension types for numpy values (1: an
@@ -13,19 +15,26 @@ chunk size come as ``{"__msgpack_chunked_array__": True, "shape": ...,
 ``flax.serialization.msgpack_restore`` does (msgpack arrays as lists;
 bfloat16 arrays widened, exactly, to float32). :func:`load_model_state`
 turns a checkpoint's ``model_state_dict`` into the port's state dict.
+:func:`save_checkpoint` writes the training state in the same layout and
+encoding (:func:`packb`, the bytes ``flax.serialization.msgpack_serialize``
+gives for such a tree), the weights in flax's parameter layout, so that
+both packages read what the port trains.
 """
 
 from __future__ import annotations
 
+import os
 import struct
-from typing import Any, Dict
+import tempfile
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
 from .convert import from_jax_params
 
-__all__ = ["load_checkpoint", "unpackb", "load_model_state"]
+__all__ = ["load_checkpoint", "unpackb", "load_model_state", "packb",
+           "save_checkpoint"]
 
 _EXT_NDARRAY, _EXT_COMPLEX, _EXT_NPSCALAR = 1, 2, 3
 
@@ -153,3 +162,109 @@ def load_checkpoint(path: str) -> Dict[str, Any]:
 def load_model_state(path: str) -> Dict[str, torch.Tensor]:
     """The codec weights of a ``.ckpt`` as the port's state dict."""
     return from_jax_params(load_checkpoint(path)["model_state_dict"])
+
+
+def _pack_int(n: int) -> bytes:
+    if 0 <= n <= 0x7F or -32 <= n < 0:
+        return struct.pack(">b" if n < 0 else ">B", n)
+    forms = ((">B", 0xCC, 0, 0xFF), (">H", 0xCD, 0, 0xFFFF),
+             (">I", 0xCE, 0, 0xFFFFFFFF), (">Q", 0xCF, 0, 2 ** 64 - 1)) \
+        if n >= 0 else ((">b", 0xD0, -2 ** 7, -1), (">h", 0xD1, -2 ** 15, -1),
+                        (">i", 0xD2, -2 ** 31, -1), (">q", 0xD3, -2 ** 63, -1))
+    for fmt, tag, lo, hi in forms:
+        if lo <= n <= hi:
+            return bytes([tag]) + struct.pack(fmt, n)
+    raise OverflowError(f"{n} does not fit msgpack's 64-bit integers")
+
+
+def _pack_sized(n: int, small: Optional[int], tags, limit: int = 31
+                ) -> bytes:
+    """The header of a str / bin / array / map of ``n`` entries: the fix
+    form below ``limit`` (where there is one), else 8 / 16 / 32 bits."""
+    if small is not None and n <= limit:
+        return bytes([small | n])
+    for fmt, tag in zip((">B", ">H", ">I"), tags):
+        if tag is not None and n < 1 << (8 * struct.calcsize(fmt)):
+            return bytes([tag]) + struct.pack(fmt, n)
+    raise OverflowError(f"{n} entries do not fit msgpack")
+
+
+def _pack_ext(code: int, data: bytes) -> bytes:
+    fixed = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+    if len(data) in fixed:
+        head = bytes([fixed[len(data)]])
+    else:
+        head = _pack_sized(len(data), None, (0xC7, 0xC8, 0xC9))
+    return head + struct.pack(">b", code) + data
+
+
+def _pack_ndarray(a: np.ndarray) -> bytes:
+    if a.dtype.hasobject or a.nbytes > 2 ** 30:
+        raise ValueError(f"cannot write an array of {a.dtype} and "
+                         f"{a.nbytes} bytes")
+    return packb([list(a.shape), a.dtype.name, a.tobytes("C")])
+
+
+def packb(value: Any) -> bytes:
+    """One msgpack document of ``value``, as flax writes it: maps with
+    sorted str keys, str and bin, lists, ints, floats as doubles, nil,
+    bools, numpy arrays (extension 1) and numpy scalars (extension 3)."""
+    if value is None:
+        return b"\xc0"
+    if isinstance(value, bool):
+        return b"\xc3" if value else b"\xc2"
+    if isinstance(value, np.ndarray):
+        return _pack_ext(_EXT_NDARRAY, _pack_ndarray(value))
+    if isinstance(value, np.generic):
+        return _pack_ext(_EXT_NPSCALAR, _pack_ndarray(np.asarray(value)))
+    if isinstance(value, int):
+        return _pack_int(value)
+    if isinstance(value, float):
+        return b"\xcb" + struct.pack(">d", value)
+    if isinstance(value, str):
+        b = value.encode("utf-8")
+        return _pack_sized(len(b), 0xA0, (0xD9, 0xDA, 0xDB)) + b
+    if isinstance(value, (bytes, bytearray)):
+        return _pack_sized(len(value), None, (0xC4, 0xC5, 0xC6)) + bytes(
+            value)
+    if isinstance(value, (list, tuple)):
+        return _pack_sized(len(value), 0x90, (None, 0xDC, 0xDD), 15) + \
+            b"".join(packb(v) for v in value)
+    if isinstance(value, dict):
+        if not all(isinstance(k, str) for k in value):
+            raise TypeError("checkpoint maps take str keys")
+        return _pack_sized(len(value), 0x80, (None, 0xDE, 0xDF), 15) + \
+            b"".join(packb(k) + packb(value[k]) for k in sorted(value))
+    raise TypeError(f"cannot write {type(value).__name__} to a checkpoint")
+
+
+def save_checkpoint(save_path: str, tag: str, *, step: int,
+                    model_state: Dict[str, Any],
+                    optimizer_state: Optional[Dict[str, Any]] = None,
+                    scheduler_state: Optional[Dict[str, Any]] = None,
+                    best_perf: float = -1.0,
+                    rng_state: Optional[str] = None) -> str:
+    """Write ``{save_path}/{tag}`` with ``esc_tpu``'s top-level keys
+    (``esc_tpu/checkpoint.py:56-66``): ``model_state`` is the flax
+    parameter tree (:func:`esc_tpu_torch.convert.to_jax_params`), the
+    optimizer state the port's own. The file is written under a name of its
+    own in the same directory and moved into place, so that a reader never
+    sees half of it and two writers never share a temporary file."""
+    os.makedirs(save_path, exist_ok=True)
+    payload = {"step": int(step), "model_state_dict": model_state,
+               "optimizer_state_dict": optimizer_state or {},
+               "scheduler_state_dict": scheduler_state or {},
+               "best_perf": float(best_perf)}
+    if rng_state is not None:
+        payload["rng_state"] = rng_state
+    path = os.path.join(save_path, tag)
+    fd, tmp = tempfile.mkstemp(prefix=f".{tag}.", suffix=".tmp",
+                               dir=save_path)
+    try:
+        with os.fdopen(fd, "wb") as f:
+            f.write(packb(payload))
+        os.replace(tmp, path)
+    except BaseException:
+        os.unlink(tmp)
+        raise
+    return path

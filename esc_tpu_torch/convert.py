@@ -1,16 +1,19 @@
-"""Weights carrier: JAX (flax) parameters -> the port's state dict.
+"""Weights carrier: JAX (flax) parameters <-> the port's state dict.
 
 Port of the key mapping of ``esc_tpu/convert.py`` (``flax_to_torch``,
-``_flax_path_to_torch_key``) for the ESC modules. The input is the flax
-parameter tree as nested dicts of array-likes (numpy arrays, e.g. after
-``jax.tree.map(np.asarray, variables)``), with or without the top-level
-``"params"`` collection. No JAX is imported.
+``_flax_path_to_torch_key``, ``torch_to_flax``) for the ESC modules. The
+input is the flax parameter tree as nested dicts of array-likes (numpy
+arrays, e.g. after ``jax.tree.map(np.asarray, variables)``), with or
+without the top-level ``"params"`` collection. No JAX is imported.
 
     encoder/blocks_0/swint_blocks_1/attn/qkv/kernel
         -> encoder.blocks.0.swint_blocks.1.attn.qkv.weight  (transposed)
     quantizers_2/vqs_1/embedding -> quantizers.2.vqs.1.embedding.weight
     patch_embed/proj/kernel      -> patch_embed.proj.weight (HWIO -> OIHW)
     .../norm/scale               -> .../norm.weight
+
+:func:`to_jax_params` is the inverse, from the port's module: what the
+port trains is saved in the layout the JAX package loads.
 """
 
 from __future__ import annotations
@@ -20,8 +23,9 @@ from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
+import torch.nn as nn
 
-__all__ = ["from_jax_params", "flax_path_to_key"]
+__all__ = ["from_jax_params", "to_jax_params", "flax_path_to_key"]
 
 _LIST_COMPONENT = re.compile(r"^(.*)_(\d+)$")
 # flax submodule names that are list entries in the torch module tree
@@ -74,3 +78,34 @@ def from_jax_params(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             v = v.transpose(3, 2, 0, 1)
         out[flax_path_to_key(path)] = torch.tensor(np.ascontiguousarray(v))
     return out
+
+
+def to_jax_params(module: nn.Module) -> Dict[str, Any]:
+    """The port's ESC module -> flax parameter tree (nested dicts of
+    float32 numpy arrays), the inverse of :func:`from_jax_params`: Linear
+    weights become Dense kernels ``(in, out)``, conv weights HWIO kernels,
+    LayerNorm weights ``scale``."""
+    tree: Dict[str, Any] = {}
+    for name, sub in module.named_modules():
+        for leaf, p in sub.named_parameters(recurse=False):
+            v = p.detach().cpu().float().numpy()
+            if isinstance(sub, nn.Embedding):
+                path = name.split(".")           # .../vqs_m/embedding
+            elif leaf == "weight" and isinstance(sub, nn.LayerNorm):
+                path = name.split(".") + ["scale"]
+            elif leaf == "weight":
+                path = name.split(".") + ["kernel"]
+                v = v.T if v.ndim == 2 else v.transpose(2, 3, 1, 0)
+            else:
+                path = name.split(".") + [leaf]
+            parts = []
+            for part in path:
+                if part.isdigit() and parts and parts[-1] in _LIST_NAMES:
+                    parts[-1] = f"{parts[-1]}_{part}"
+                else:
+                    parts.append(part)
+            node = tree
+            for part in parts[:-1]:
+                node = node.setdefault(part, {})
+            node[parts[-1]] = np.ascontiguousarray(v)
+    return tree

@@ -1,7 +1,8 @@
 """WAV input/output and the codec's length padding.
 
 Port of ``esc_tpu/train/data.py`` (``load_wav``, ``save_wav``,
-``esc_pad_length``). ``load_wav`` parses the RIFF chunks itself, as the JAX
+``esc_pad_length``); ``wav_frames`` reads a file's length from its chunk
+headers alone. ``load_wav`` parses the RIFF chunks itself, as the JAX
 package's native loader does (``native/wavio.cpp:99-125``): PCM 8/16/24/32,
 IEEE float32 and ``WAVE_FORMAT_EXTENSIBLE``, the first channel of a
 multichannel file, chunks of odd size padded to an even offset.
@@ -14,7 +15,7 @@ import wave
 
 import numpy as np
 
-__all__ = ["load_wav", "save_wav", "esc_pad_length"]
+__all__ = ["load_wav", "save_wav", "wav_frames", "esc_pad_length"]
 
 _PCM, _FLOAT, _EXTENSIBLE = 1, 3, 0xFFFE
 
@@ -67,6 +68,32 @@ def load_wav(path: str) -> np.ndarray:
     if bits == 8:
         return (x.astype(np.float32) - 128.0) / np.float32(128.0)
     return x.astype(np.float32) / np.float32(2.0 ** (bits - 1))
+
+
+def wav_frames(path: str) -> int:
+    """Sample frames of a WAV file, from its ``fmt `` and ``data`` chunk
+    headers (the samples are not read)."""
+    block = None
+    with open(path, "rb") as f:
+        head = f.read(12)
+        if len(head) < 12 or head[:4] != b"RIFF" or head[8:12] != b"WAVE":
+            raise ValueError(f"not a RIFF/WAVE file: {path}")
+        end = f.seek(0, 2)
+        pos = 12
+        while pos + 8 <= end:
+            f.seek(pos)
+            tag, size = struct.unpack("<4sI", f.read(8))
+            if tag == b"fmt " and size >= 16:
+                channels = struct.unpack("<2xH", f.read(4))[0]
+                f.seek(pos + 8 + 14)
+                bits = struct.unpack("<H", f.read(2))[0]
+                block = channels * bits // 8
+            elif tag == b"data":
+                if not block:
+                    break
+                return min(size, end - pos - 8) // block
+            pos += 8 + size + (size & 1)
+    raise ValueError(f"missing fmt/data chunk: {path}")
 
 
 def save_wav(path: str, x: np.ndarray, sr: int = 16000) -> None:

@@ -1,11 +1,16 @@
 """The ESC codec: ``ESCModule`` (an ``nn.Module``) and the ``ESC`` facade.
 
-Port of ``esc_tpu/models/codecs.py`` for ESC (``csvq+swinT``) at
-inference (reference: esc/models/codecs.py:9-94):
+Port of ``esc_tpu/models/codecs.py`` for ESC (``csvq+swinT``)
+(reference: esc/models/codecs.py:9-94):
 
     model = ESC(**config, device="cuda")     # seeded random init
     codes, feat_shape = model.encode(x, num_streams=6)
     recon = model.decode(codes, feat_shape)
+    out = model(x, num_streams=6)            # the eval forward's dict
+
+``ESCModule.forward`` is the full forward; in training mode
+(``module.train()``) it runs the kernels' plain versions and returns the
+straight-through losses, as the JAX package trains.
 
 ``dtype=torch.bfloat16`` is the bf16 serving mode (``esc_tpu/models/
 codecs.py:304-339``): parameters stay float32; the Swin blocks' Linear
@@ -81,6 +86,25 @@ class ESCModule(nn.Module):
                                             patch_size, list(swin_heads)[::-1],
                                             swin_depth, window_size,
                                             mlp_ratio)
+
+    def forward(self, x: torch.Tensor, num_streams: int = 6,
+                freeze_codebook: bool = False) -> dict:
+        """Full forward (esc/models/codecs.py:30-66): the reference output
+        dict with per-sample ``(B,)`` losses. ``freeze_codebook`` (the
+        pretraining stage) runs every scale with the quantizers bypassed."""
+        if freeze_codebook:
+            num_streams = self.max_streams
+        x_feat = spec_transform(x, self.in_freq, self.win_len, self.hop_len,
+                                self.sr)
+        enc_hs, feat_shape = self.encoder(x_feat)
+        recon_feat, codes, cm_loss, cb_loss = self.decoder(
+            enc_hs, num_streams, self.quantizers, feat_shape,
+            freeze_vq=freeze_codebook)
+        recon_x = audio_reconstruct(recon_feat, self.in_freq, self.win_len,
+                                    self.hop_len, self.sr)
+        return {"cm_loss": cm_loss, "cb_loss": cb_loss, "raw_audio": x,
+                "recon_audio": recon_x, "raw_feat": x_feat,
+                "recon_feat": recon_feat, "codes": codes}
 
     def encode(self, x: torch.Tensor, num_streams: int) -> torch.Tensor:
         """Waveform ``(B, L)`` -> codes ``(B, num_streams, groups, T)``."""
@@ -227,6 +251,33 @@ class ESC:
         """Waveform -> (codes, feat_shape, reconstruction)."""
         codes, fs = self.encode(x, num_streams)
         return codes, fs, self.decode(codes, fs)
+
+    @torch.no_grad()
+    def __call__(self, x, num_streams: int = 6,
+                 freeze_codebook: bool = False) -> dict:
+        """Eval-mode forward (``esc_tpu/models/codecs.py:403``): the
+        reference output dict, on the device. It runs the same encoder,
+        product VQs and decoder as :meth:`encode` and :meth:`decode`, so on
+        the card both kernels. (The JAX package's ``x_feat``, a spectrum in
+        place of the waveform, has no caller and is not ported.)"""
+        self._check_streams(num_streams)
+        if self.module.training:
+            raise RuntimeError("the eval forward needs module.eval()")
+        return self.module(self._audio(x), num_streams, freeze_codebook)
+
+    def print_codec(self) -> None:
+        """Each scale's quantizer geometry, from the bottom up
+        (esc/models/base.py:86-107)."""
+        m = self.module
+        freqs = [q.in_freq for q in m.quantizers]
+        dims = [q.fix_dim // q.in_freq for q in m.quantizers]
+        print("Codec Visualization [from bottom to top]: ")
+        print("     Freq dims:                ", freqs)
+        print("     Channel(hidden) dims:     ", dims)
+        print("     Reshaped hidden dims:     ",
+              [f * d for f, d in zip(freqs, dims)])
+        print("     Codebook dims:            ",
+              [q.vqs[0].embedding.weight.shape[1] for q in m.quantizers])
 
     # -- long files (constant memory) --------------------------------------
 

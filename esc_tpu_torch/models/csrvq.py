@@ -1,4 +1,4 @@
-"""Cross-scale residual vector quantization decoder, at inference.
+"""Cross-scale residual vector quantization decoder.
 
 Port of ``esc_tpu/models/csrvq.py`` (transformer backbone; reference:
 esc/models/csrvq.py:63-183). Scale by scale, the decoder refines its
@@ -6,6 +6,10 @@ features with the quantized residual between encoder and decoder features:
 
     residual_i = enc_hs[-1-i] - dec_i
     dec_i'     = VQ_i(residual_i) + dec_i
+
+In training mode every scale runs, and a scale that is not transmitted is
+masked by a multiplication by zero (csrvq.py:43-45), so that every
+parameter stays on the gradient path; at inference it is skipped.
 """
 
 from __future__ import annotations
@@ -41,6 +45,40 @@ class CrossScaleRVQDecoder(nn.Module):
                                         swin_depth, window_size, mlp_ratio,
                                         scale=None)
         self.patch_deembed = PatchDeEmbed(in_freq, in_dim, patch_size, h[-1])
+
+    def forward(self, enc_hs: List[torch.Tensor], num_streams: int,
+                quantizers, feat_shape: Tuple[int, int],
+                freeze_vq: bool = False):
+        """The step-wise cross-scale decoding of the full forward
+        (csrvq.py:97-129): ``(recon_feat, codes, cm_loss, cb_loss)`` with
+        per-sample losses. In training mode ``codes`` holds every scale;
+        at inference only the transmitted ones."""
+        H, W = feat_shape
+        dec, cm_loss, cb_loss, code = self._fuse(
+            enc_hs[-1], 0.0, quantizers[0], True, freeze_vq)
+        codes = [code]
+        for i, blk in enumerate(self.blocks):
+            dec, cm_i, cb_i, code_i = self._fuse(
+                enc_hs[-1 - i], dec, quantizers[i + 1], i < num_streams - 1,
+                freeze_vq)
+            cm_loss = cm_loss + cm_i
+            cb_loss = cb_loss + cb_i
+            if code_i is not None:
+                codes.append(code_i)
+            dec, H, W = blk(dec, H, W)
+        dec, H, W = self.post_nn(dec, H, W)
+        return (self.patch_deembed(dec), torch.stack(codes, dim=1), cm_loss,
+                cb_loss)
+
+    def _fuse(self, enc, dec, vq, transmit: bool, freeze_vq: bool):
+        """Quantize ``enc - dec`` and add it to ``dec`` (csrvq.py:23-48);
+        returns ``(dec', cm_loss, cb_loss, codes)``."""
+        if not self.training and not transmit:
+            return dec, 0.0, 0.0, None
+        out = vq(enc - dec, freeze_vq=freeze_vq)
+        live = float(transmit)
+        return (out["z_q"] * live + dec, out["cm_loss"] * live,
+                out["cb_loss"] * live, out["codes"])
 
     def encode(self, enc_hs: List[torch.Tensor], num_streams: int,
                quantizers, feat_shape: Tuple[int, int]) -> torch.Tensor:

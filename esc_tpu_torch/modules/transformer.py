@@ -113,6 +113,8 @@ class WindowAttention(nn.Module):
 
     ``plain_ops`` (set by the codec) runs the plain PyTorch attention in
     place of the kernel, on any device: the yardstick the kernel is held to.
+    Training mode runs it too, as the JAX package trains
+    (``esc_tpu/modules/transformer.py:225``).
     ``compute_dtype`` (set by the codec) is the dtype of the projections.
     """
 
@@ -141,7 +143,8 @@ class WindowAttention(nn.Module):
         bias = self.relative_position_bias_table[
             self.relative_position_index.reshape(-1)].reshape(N, N, -1)
         bias = bias.permute(2, 0, 1).contiguous()         # (nh, N, N)
-        attend = window_attention_plain if self.plain_ops else window_attention
+        attend = window_attention_plain if self.plain_ops or self.training \
+            else window_attention
         dt = self.compute_dtype
         out = attend(_linear(self.qkv, x, dt), bias, mask, self.num_heads,
                      self.scale)

@@ -1,16 +1,19 @@
-"""Product vector quantization at inference.
+"""Product vector quantization.
 
-Port of the inference path of ``esc_tpu/modules/vq.py`` (reference:
+Port of ``esc_tpu/modules/vq.py`` (reference:
 esc/modules/vq/{codebook,quantization}.py): ``split_dimension``,
 ``pre_process`` / ``post_process``, ``Codebook`` and
-``ProductVectorQuantize``. The nearest-codeword search is the codebook
-argmin kernel (:mod:`esc_tpu_torch.ops.kernels.codebook_argmin`), after the
-cosine (L2-normalised) lookup's normalisation.
+``ProductVectorQuantize``. At inference the nearest-codeword search is the
+codebook argmin kernel (:mod:`esc_tpu_torch.ops.kernels.codebook_argmin`),
+after the cosine (L2-normalised) lookup's normalisation. In training mode
+(``module.train()``) it is the kernel's plain version, as in the JAX
+package (``esc_tpu/modules/vq.py:121``), and the forward returns the
+straight-through estimate with per-sample losses.
 """
 
 from __future__ import annotations
 
-from typing import List
+from typing import Dict, List
 
 import torch
 import torch.nn as nn
@@ -68,7 +71,7 @@ class Codebook(nn.Module):
     """One VQ codebook with optional cosine (L2-normalised) lookup.
 
     ``plain_ops`` (set by the codec) runs the plain PyTorch argmin in place
-    of the kernel, on any device.
+    of the kernel, on any device; so does training mode.
     """
 
     plain_ops = False
@@ -87,12 +90,31 @@ class Codebook(nn.Module):
         if self.l2norm:
             codebook = _l2_normalize(codebook)
             z = _l2_normalize(z)
-        search = codebook_argmin_plain if self.plain_ops else codebook_argmin
+        search = codebook_argmin_plain if self.plain_ops or self.training \
+            else codebook_argmin
         return search(z.contiguous(), codebook.contiguous()).reshape(B, -1)
 
     def decode(self, code: torch.Tensor) -> torch.Tensor:
         """Integer codes ``(B, *)`` -> embeddings ``(B, *, d)``."""
         return F.embedding(code, self.embedding.weight)
+
+    def forward(self, z_e: torch.Tensor):
+        """``(B, T, d)`` -> ``(z_q, code, codebook_loss, commitment_loss)``
+        with per-sample ``(B,)`` losses (codebook.py:57-75). In training
+        mode ``z_q`` is the straight-through estimate and each loss stops
+        the gradient of the other side; at inference both losses are the
+        same commitment."""
+        with torch.no_grad():
+            code = self.encode(z_e)
+        z_q = self.decode(code)
+        if self.training:
+            commitment = ((z_q.detach() - z_e) ** 2).mean((1, 2))
+            codebook_l = ((z_q - z_e.detach()) ** 2).mean((1, 2))
+            z_q = z_e + (z_q - z_e).detach()
+        else:
+            commitment = ((z_q - z_e) ** 2).mean((1, 2))
+            codebook_l = commitment
+        return z_q, code, codebook_l, commitment
 
 
 class ProductVectorQuantize(nn.Module):
@@ -113,6 +135,35 @@ class ProductVectorQuantize(nn.Module):
                                          for d in self.vq_dims])
         self.up_projs = nn.ModuleList([nn.Linear(codebook_dim, d, bias=False)
                                        for d in self.vq_dims])
+
+    def forward(self, z_e: torch.Tensor, freeze_vq: bool = False
+                ) -> Dict[str, torch.Tensor]:
+        """Quantize and dequantize tokens ``(B, H*W, C)``: ``{"z_q",
+        "codes" (B, num_vqs, T), "cb_loss" (B,), "cm_loss" (B,)}``.
+        ``freeze_vq`` is the codebook-freeze pretraining stage
+        (quantization.py:56-59): the input passes through the quantized
+        path's place, multiplied in so that every parameter stays on the
+        graph, and the losses are zero."""
+        z = pre_process(z_e, self.in_freq, self.overlap, self.fix_dim)
+        z_qs, codes, cb_loss, cm_loss, s = [], [], 0.0, 0.0, 0
+        for dim, down, up, vq in zip(self.vq_dims, self.down_projs,
+                                     self.up_projs, self.vqs):
+            z_m = down(z[..., s:s + dim])
+            z_q_m, code, cb, cm = vq(z_m)
+            if freeze_vq:
+                z_q_m = z_q_m * 0.0 + z_m
+                cb = cb * 0.0
+                cm = cm * 0.0
+            z_qs.append(up(z_q_m))
+            codes.append(code)
+            cb_loss = cb_loss + cb
+            cm_loss = cm_loss + cm
+            s += dim
+        z_q = post_process(torch.cat(z_qs, dim=-1), self.in_freq,
+                           self.overlap, self.fix_dim)
+        n = len(self.vqs)
+        return {"z_q": z_q, "codes": torch.stack(codes, dim=1),
+                "cb_loss": cb_loss / n, "cm_loss": cm_loss / n}
 
     def encode(self, z_e: torch.Tensor) -> torch.Tensor:
         """Tokens ``(B, H*W, C)`` -> codes ``(B, num_vqs, T)``."""

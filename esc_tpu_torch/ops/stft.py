@@ -59,21 +59,27 @@ def _ola_envelope(n_fft: int, win_length: int, hop: int, T: int) -> np.ndarray:
     return np.where(env > 1e-11, env, 1.0).astype(np.float32)
 
 
-def _const(a: np.ndarray, device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(a).to(device)
+@functools.lru_cache(maxsize=64)
+def _on_device(make, args: tuple, index: int, device: torch.device
+               ) -> torch.Tensor:
+    """``make(*args)[index]`` (or ``make(*args)`` where ``index`` is -1), a
+    numpy constant, as a tensor kept on ``device``: it is uploaded once,
+    not at every call."""
+    a = make(*args)
+    return torch.from_numpy(a if index < 0 else a[index]).to(device)
 
 
 def stft(x: torch.Tensor, n_fft: int = 382, win_length: int = 320,
          hop_length: int = 80) -> torch.Tensor:
     """Waveform ``(B, L)`` -> ``(B, 2, F, T)`` (real, imag), ``T = L//hop+1``."""
-    fwd, _, _ = _dft_matrices(n_fft, win_length)
     B, L = x.shape
     T = L // hop_length + 1
     nf = n_fft // 2 + 1
     pad = n_fft // 2
     xp = F.pad(x.float()[:, None], (pad, pad), mode="reflect")[:, 0]
     frames = xp.unfold(-1, n_fft, hop_length)[:, :T]        # (B, T, n_fft)
-    spec = frames @ _const(fwd, x.device)                   # (B, T, 2F)
+    spec = frames @ _on_device(_dft_matrices, (n_fft, win_length), 0,
+                               x.device)                    # (B, T, 2F)
     return spec.reshape(B, T, 2, nf).permute(0, 2, 3, 1)
 
 
@@ -82,15 +88,15 @@ def istft(spec: torch.Tensor, n_fft: int = 382, win_length: int = 320,
           ) -> torch.Tensor:
     """``(B, 2, F, T)`` -> waveform ``(B, L)``, ``L = (T-1)*hop`` by default,
     with least-squares overlap-add normalisation (torch.istft semantics)."""
-    _, inv, _ = _dft_matrices(n_fft, win_length)
     B, _, nf, T = spec.shape
     flat = spec.permute(0, 3, 1, 2).reshape(B, T, 2 * nf).float()
-    frames = flat @ _const(inv, spec.device)                # (B, T, n_fft)
+    frames = flat @ _on_device(_dft_matrices, (n_fft, win_length), 1,
+                               spec.device)                 # (B, T, n_fft)
     total = (T - 1) * hop_length + n_fft
     y = F.fold(frames.transpose(1, 2), output_size=(1, total),
                kernel_size=(1, n_fft), stride=(1, hop_length))[:, 0, 0]
-    env = _const(_ola_envelope(n_fft, win_length, hop_length, T),
-                 spec.device)
+    env = _on_device(_ola_envelope, (n_fft, win_length, hop_length, T), -1,
+                     spec.device)
     pad = n_fft // 2
     out_len = (T - 1) * hop_length if length is None else length
     return y[:, pad:pad + out_len] / env[pad:pad + out_len]

@@ -1,0 +1,279 @@
+"""The non-adversarial codec trainer on one device.
+
+Port of ``esc_tpu/train/trainer.py`` (reference: scripts/trainer_no_adv.py):
+
+- quantization dropout drawn on the host for every step
+  (scripts/utils.py:11-25), from the run's seed;
+- the codebook-freeze pretraining stage, then the optimizer renewed at the
+  switch (trainer_no_adv.py:75-78), which restarts the schedule;
+- per-sample losses, weighted, then the batch mean (trainer_no_adv.py:
+  108-115); a global-norm clip of 0.5 before each AdamW step;
+- after every epoch past pretraining, an evaluation at the top bitrate that
+  keeps ``best.ckpt`` by ``--val_metric``; ``pretrained.ckpt`` at the
+  switch and a rolling ``checkpoint.ckpt``;
+- epoch-aligned iteration, so that ``--resume`` replays the data order of
+  an uninterrupted run from the step after the checkpoint's.
+
+Training runs the kernels' plain versions (the modules' training mode), as
+the JAX package does; the per-epoch evaluation runs the kernels. The host
+reads the losses once per log window. The JAX package's ``make_multi_step``
+(many steps in one TPU dispatch) is not a feature of training and has no
+counterpart here.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import time
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from ..checkpoint import load_checkpoint, save_checkpoint
+from ..convert import from_jax_params, to_jax_params
+from ..device import resolve_device
+from ..metrics import PESQ, SISDR, EntropyCounter, MelSpectrogramDistance
+from ..models import make_model
+from ..modules.losses import complex_stft_loss, mel_spectrogram_loss
+from ..utils.config import write_yaml
+from ..utils.profiling import StepTimer
+from .data import make_dataloader, quantization_dropout
+from .evaluate import eval_epoch
+from .optim import AdamW, make_schedule
+
+__all__ = ["Trainer"]
+
+
+class Trainer:
+    """Codec trainer, non-adversarial. ``config`` is the YAML config as a
+    dict; ``args`` the flags of ``python -m esc_tpu_torch.cli.train``."""
+
+    def __init__(self, config: dict, args, device=None):
+        self.config, self.args = config, args
+        self.device = resolve_device(
+            device if device is not None else getattr(args, "device", None))
+        self.rng = np.random.default_rng(getattr(args, "seed", 53))
+        self.bps_per_stream = 1.5
+        self.timer = StepTimer(self.device)
+        self.log_stats: Optional[Dict[str, list]] = None
+        self.wandb = None
+        self.best_perf, self.start_step = -math.inf, 0
+        self._warned_val_metric = False
+
+    # ------------------------------------------------------------------
+    def load(self):
+        cfg, args = self.config, self.args
+        model = make_model(cfg["model"], cfg.get("model_name", "csvq+swinT"),
+                           seed=getattr(args, "seed", 53), device=self.device)
+        self.metrics = {"PESQ": PESQ(), "MelDistance": MelSpectrogramDistance(),
+                        "SISDR": SISDR()}
+        mcfg = model.config
+        self.e_counter = EntropyCounter(mcfg["codebook_size"],
+                                        mcfg["max_streams"],
+                                        mcfg.get("group_size", 3))
+        self.loss_weights = {k: float(cfg["loss"][f"{k}_weight"])
+                             for k in ("cm", "cb", "mel", "stft")}
+        data = cfg["data"]
+        train_dl = make_dataloader(data["train_data_path"],
+                                   data["train_bs_per_device"], True,
+                                   data["num_workers"])
+        val_dl = make_dataloader(data["val_data_path"],
+                                 data["val_bs_per_device"], False,
+                                 data["num_workers"])
+        args.train_steps = len(train_dl)
+        args.max_train_steps = args.train_steps * args.num_epochs
+        args.pretraining_steps = args.train_steps * args.num_pretraining_epochs
+        self.schedule = make_schedule(args.scheduler_type, args.lr,
+                                      total_steps=args.max_train_steps,
+                                      warmup_steps=args.num_warmup_steps)
+        self.opt = AdamW(model.module.named_parameters(), self.schedule,
+                         clip_norm=0.5)
+        print(f"<<<<Experimental Setup: {args.exp_name}>>>>")
+        print(f"   Device: {self.device}  Batch: Train "
+              f"{data['train_bs_per_device']} Val "
+              f"{data['val_bs_per_device']}  LR: {args.lr}")
+        print(f"   Total_Training_Steps: {args.train_steps}*"
+              f"{args.num_epochs}={args.max_train_steps}")
+        print(f"   Pre-Training_Steps: {args.train_steps}*"
+              f"{args.num_pretraining_epochs}={args.pretraining_steps}")
+        print(f"   Optimizer: AdamW    Scheduler: {args.scheduler_type}")
+        print(f"   Quantization_Dropout: {args.dropout_rate}")
+        print(f"   Model #Parameters: {model.num_params() / 1e6:.2f}M")
+        if getattr(args, "save_path", None):
+            d = os.path.join(args.save_path, args.exp_name)
+            os.makedirs(d, exist_ok=True)
+            write_yaml(os.path.join(d, "config.yaml"), cfg)
+        return model, train_dl, val_dl
+
+    # ------------------------------------------------------------------
+    def train_step(self, batch, num_streams: int, freeze: bool
+                   ) -> Dict[str, torch.Tensor]:
+        """One step on a batch ``(B, L)``: forward in training mode, the
+        weighted per-sample losses' mean, backward, clip and AdamW. Returns
+        the batch means of the losses, on the device."""
+        module = self.model.module
+        module.train()
+        x = torch.as_tensor(batch).to(self.device)
+        out = module(x, num_streams, freeze)
+        mel = mel_spectrogram_loss(out["raw_audio"], out["recon_audio"])
+        stft_l = complex_stft_loss(out["raw_feat"], out["recon_feat"])
+        w = self.loss_weights
+        total = (out["cm_loss"] * w["cm"] + out["cb_loss"] * w["cb"]
+                 + mel * w["mel"] + stft_l * w["stft"])
+        loss = total.mean()
+        self.opt.zero_grad()
+        loss.backward()
+        self.opt.step()
+        return {"cm_loss": out["cm_loss"].mean().detach(),
+                "cb_loss": out["cb_loss"].mean().detach(),
+                "mel_loss": mel.mean().detach(),
+                "stft_loss": stft_l.mean().detach(), "loss": loss.detach()}
+
+    def train(self):
+        """Run to ``args.max_train_steps``; returns the model."""
+        args = self.args
+        model, train_dl, val_dl = self.load()
+        self.model, self.val_dl = model, val_dl
+        if getattr(args, "resume", False) and getattr(args, "save_path",
+                                                      None):
+            rolling = os.path.join(args.save_path, args.exp_name,
+                                   "checkpoint.ckpt")
+            if os.path.exists(rolling):
+                self._load_resume(rolling)
+        if getattr(args, "pretrain_ckp", None):
+            self._load_resume(args.pretrain_ckp)
+
+        step = self.start_step
+        t0, window_steps = time.time(), 0
+        while step < args.max_train_steps:
+            epoch, offset = divmod(step, args.train_steps)
+            train_dl.set_epoch(epoch)
+            for i, batch in enumerate(train_dl):
+                if i < offset:
+                    continue
+                if args.pretraining_steps > 0 \
+                        and step == args.pretraining_steps + 1:
+                    self.opt.renew()
+                    print("Optimizer Renewed")
+                s = quantization_dropout(args.dropout_rate,
+                                         model.max_streams, self.rng)
+                freeze = step < args.pretraining_steps
+                if window_steps == 0:
+                    self.timer.tic()
+                self._log_accumulate(self.train_step(batch, s, freeze))
+                window_steps += 1
+                if (step + 1) % args.log_steps == 0:
+                    self.timer.toc_window(window_steps)
+                    window_steps = 0
+                if step > args.pretraining_steps \
+                        and step % args.train_steps == 0 and step > 0:
+                    self.evaluate(step)
+                    window_steps = 0  # the evaluation is not a step's time
+                if (step + 1) % args.log_steps == 0:
+                    self.log_step(step, time.time() - t0)
+                if step == args.pretraining_steps and step > 0:
+                    self.save_ckp(step, tag="pretrained.ckpt")
+                    window_steps = 0
+                step += 1
+                if step >= args.max_train_steps:
+                    break
+        # the last completed step, so that a longer run resumes at `step`
+        self.save_ckp(step - 1, tag="checkpoint.ckpt")
+        model.module.eval()
+        return model
+
+    # ------------------------------------------------------------------
+    def _log_accumulate(self, aux: Dict[str, torch.Tensor]) -> None:
+        if self.log_stats is None:
+            self.log_stats = {k: [] for k in aux}
+        for k, v in aux.items():
+            self.log_stats[k].append(v)
+
+    def log_step(self, step: int, elapsed: float) -> None:
+        """Print the log window's mean losses: one read of the device."""
+        stats = {k: float(torch.stack(v).float().mean().cpu())
+                 for k, v in self.log_stats.items()}
+        self.log_stats = None
+        stats.update(self.timer.summary())
+        msg = " | ".join(f"{k}: {v:.4f}" for k, v in stats.items())
+        print(f"[step {step + 1}/{self.args.max_train_steps} "
+              f"{elapsed:.0f}s] {msg}", flush=True)
+        if self.wandb is not None:
+            self.wandb.log(stats, step=step)
+
+    def evaluate(self, step: int) -> None:
+        """Score the top bitrate on the validation set; keep ``best.ckpt``
+        by ``--val_metric`` (SISDR, then MelDistance where it is NaN) and
+        write ``checkpoint.ckpt``."""
+        eval_streams = self.model.max_streams
+        self.model.module.eval()
+        perf = eval_epoch(self.model, self.val_dl, self.metrics,
+                          self.e_counter, self.bps_per_stream,
+                          num_streams=eval_streams, verbose=False)
+        perf = {k: v[0] for k, v in perf.items()}
+        print(f"[Step {step + 1}/{self.args.max_train_steps}] | "
+              f"Performance at {eval_streams * self.bps_per_stream:.2f}kbps: ",
+              " | ".join(f"{k}: {v:.4f}" for k, v in perf.items()),
+              flush=True)
+        if self.wandb is not None:
+            self.wandb.log(perf, step=step)
+        metric_name = self.args.val_metric
+        metric = perf.get(metric_name)
+        if metric is None or np.isnan(metric):
+            for fallback in ("SISDR", "MelDistance"):
+                v = perf.get(fallback)
+                if v is not None and not np.isnan(v):
+                    if not self._warned_val_metric:
+                        print(f"WARNING: val_metric {metric_name} is "
+                              f"unavailable (NaN) - selecting best.ckpt by "
+                              f"{fallback} instead")
+                        self._warned_val_metric = True
+                    metric_name, metric = fallback, v
+                    break
+        if metric is not None and not np.isnan(metric):
+            # MelDistance is lower-is-better: compare signed scores
+            score = -metric if metric_name == "MelDistance" else metric
+            if score > self.best_perf:
+                self.best_perf = score
+                self.save_ckp(step, tag="best.ckpt")
+        self.save_ckp(step, tag="checkpoint.ckpt")
+
+    def save_ckp(self, step: int, tag: str) -> None:
+        """The full training state in ``esc_tpu``'s layout
+        (scripts/trainer_no_adv.py:152-162): weights, optimizer moments
+        and count, schedule, best score and the host RNG."""
+        save_checkpoint(
+            os.path.join(self.args.save_path, self.args.exp_name), tag,
+            step=step, model_state=to_jax_params(self.model.module),
+            optimizer_state=self.opt.state_dict(),
+            scheduler_state={"type": self.args.scheduler_type, "step": step},
+            best_perf=self.best_perf,
+            rng_state=json.dumps(self.rng.bit_generator.state))
+        print(f"[Step {step + 1}] | checkpoint saved as {tag}", flush=True)
+
+    def _load_resume(self, path: str) -> None:
+        """Weights from a ``.pth`` state dict, or the whole state from a
+        ``.ckpt``; an optimizer state in another layout (the JAX
+        package's) is left out, and the run starts with fresh moments."""
+        if path.endswith(".pth"):
+            ckp = torch.load(path, map_location="cpu", weights_only=True)
+            self.model.load_state_dict(ckp.get("model_state_dict", ckp))
+            print(f"Loaded torch checkpoint {path}")
+            return
+        payload = load_checkpoint(path)
+        self.model.load_state_dict(from_jax_params(
+            payload["model_state_dict"]))
+        opt_state = payload.get("optimizer_state_dict") or {}
+        restored = "mu" in opt_state and "nu" in opt_state
+        if restored:
+            self.opt.load_state_dict(opt_state)
+        if payload.get("rng_state"):
+            self.rng.bit_generator.state = json.loads(payload["rng_state"])
+        self.start_step = int(payload.get("step", 0)) + 1
+        self.best_perf = float(payload.get("best_perf", -1.0))
+        print(f"Loaded checkpoint {path}: step {self.start_step}, best "
+              f"{self.best_perf}" + (" (optimizer state restored)"
+                                     if restored else ""))

@@ -14,7 +14,9 @@ subset that the repo's configs use (``configs/**/*.yaml``, ``*.yml``):
 - ``#`` comments and blank lines.
 
 Anchors, tags, block scalars (``|``, ``>``) and multiple documents raise
-``ValueError``.
+``ValueError``. :func:`dump_yaml` writes a config back in that subset
+(maps in block style, lists in flow style, strings quoted), which the port
+and PyYAML both read as it was.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ from __future__ import annotations
 import re
 from typing import Any, List, Tuple
 
-__all__ = ["read_yaml", "parse_yaml"]
+__all__ = ["read_yaml", "parse_yaml", "dump_yaml", "write_yaml"]
 
 _NULL = {"", "~", "null", "Null", "NULL"}
 _TRUE = {"yes", "Yes", "YES", "true", "True", "TRUE", "on", "On", "ON"}
@@ -306,3 +308,56 @@ def read_yaml(path: str) -> dict:
     """Parse a YAML config file (see the module docstring for the subset)."""
     with open(path, "r") as f:
         return parse_yaml(f.read())
+
+
+_PLAIN_KEY = re.compile(r"^[A-Za-z_][A-Za-z0-9_./-]*$")
+
+
+def _dump_scalar(v: Any) -> str:
+    if v is None:
+        return "null"
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    if isinstance(v, int):
+        return str(v)
+    if isinstance(v, float):
+        if v != v:
+            return ".nan"
+        if v in (float("inf"), float("-inf")):
+            return ".inf" if v > 0 else "-.inf"
+        text = repr(v)
+        if "." not in text:      # YAML 1.1 floats need a dot: 1e-05
+            mant, _, exp = text.partition("e")
+            text = mant + ".0" + ("e" + exp if exp else "")
+        return text
+    if isinstance(v, str):
+        return "'" + v.replace("'", "''") + "'"
+    if isinstance(v, (list, tuple)):
+        return "[" + ", ".join(_dump_scalar(x) for x in v) + "]"
+    if isinstance(v, dict):
+        return "{" + ", ".join(f"{_dump_key(k)}: {_dump_scalar(x)}"
+                               for k, x in v.items()) + "}"
+    raise TypeError(f"cannot write {type(v).__name__} to YAML")
+
+
+def _dump_key(k: Any) -> str:
+    if not isinstance(k, str):
+        raise TypeError(f"YAML keys here are str, got {k!r}")
+    return k if _PLAIN_KEY.match(k) and _scalar(k) == k else _dump_scalar(k)
+
+
+def dump_yaml(config: dict, indent: int = 0) -> str:
+    """A config of nested str-keyed maps, lists and scalars as YAML text."""
+    out = []
+    for k, v in config.items():
+        if isinstance(v, dict) and v:
+            out.append(" " * indent + f"{_dump_key(k)}:")
+            out.append(dump_yaml(v, indent + 2).rstrip("\n"))
+        else:
+            out.append(" " * indent + f"{_dump_key(k)}: {_dump_scalar(v)}")
+    return "\n".join(out) + "\n"
+
+
+def write_yaml(path: str, config: dict) -> None:
+    with open(path, "w") as f:
+        f.write(dump_yaml(config))

@@ -131,7 +131,9 @@ def test_port_sources_import_no_jax(path):
 def test_importing_the_cli_loads_no_jax():
     code = ("import sys, esc_tpu_torch.cli.compress, chip_smoke, "
             "esc_tpu_torch.serving, esc_tpu_torch.checkpoint, "
-            "esc_tpu_torch.rangecoder; "
+            "esc_tpu_torch.rangecoder, esc_tpu_torch.cli.test, "
+            "esc_tpu_torch.cli.train, esc_tpu_torch.metrics, "
+            "esc_tpu_torch.train.trainer; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{_FORBIDDEN!r}); print(bad); "
             "sys.exit(1 if bad else 0)")
@@ -182,5 +184,37 @@ def test_chip_smoke_predicts_the_main_path_calls(monkeypatch, rng,
                     num_streams=num_streams)
     argmin_calls, attn_calls = chip_smoke.main_path_calls(cfg, 2, 7920,
                                                           num_streams)
+    assert seen["argmin"] == argmin_calls
+    assert seen["attn"] == attn_calls
+
+
+@pytest.mark.parametrize("num_streams", [1, 4, 6])
+def test_chip_smoke_predicts_the_eval_forward_calls(monkeypatch, rng,
+                                                    num_streams):
+    import chip_smoke
+    from esc_tpu_torch.modules import transformer, vq
+    from esc_tpu_torch.ops.kernels import (codebook_argmin_plain,
+                                           window_attention_plain)
+
+    seen = {"argmin": [], "attn": []}
+
+    def argmin(z, cb):
+        seen["argmin"].append((z.shape[0], cb.shape[0], z.shape[1]))
+        return codebook_argmin_plain(z, cb)
+
+    def attention(qkv, bias, mask, nh, scale):
+        seen["attn"].append((qkv.shape[0], nh, qkv.shape[2] // 3 // nh,
+                             mask is not None))
+        return window_attention_plain(qkv, bias, mask, nh, scale)
+
+    monkeypatch.setattr(vq, "codebook_argmin", argmin)
+    monkeypatch.setattr(transformer, "window_attention", attention)
+    cfg = dict(TINY, swin_depth=2, win_len=20, hop_len=5, sr=16000)
+    model = ESC(seed=0, device="cpu", **cfg)
+    out = model(0.1 * rng.standard_normal((3, 9520)).astype(np.float32),
+                num_streams=num_streams)
+    assert tuple(out["codes"].shape) == (3, num_streams, 3, 30)
+    argmin_calls, attn_calls = chip_smoke.main_path_calls(
+        cfg, 3, 9520, num_streams, forward=True)
     assert seen["argmin"] == argmin_calls
     assert seen["attn"] == attn_calls

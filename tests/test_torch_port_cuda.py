@@ -318,3 +318,84 @@ def test_range_coder_builds_and_round_trips(rng, cuda):
     assert blob[4] == 2
     back, fs = unpack_codes(blob)
     assert np.array_equal(back, codes) and fs == (2, 600)
+
+
+def test_eval_forward_on_kernels_matches_plain(rng, cuda):
+    x = (0.1 * rng.standard_normal((2, 15920))).astype(np.float32)
+    model = ESC(seed=2, device=cuda, **SMALL)
+    plain = ESC(seed=2, device=cuda, plain_ops=True, **SMALL)
+    for ns in (1, 6):
+        before = (codebook_argmin.launches, window_attention.launches)
+        out = model(x, num_streams=ns)
+        torch.cuda.synchronize()
+        assert codebook_argmin.launches > before[0]
+        assert window_attention.launches > before[1]
+        ref = plain(x, num_streams=ns)
+        assert float((ref["codes"] != out["codes"]).float().mean()) <= 2e-3
+        # the forward's waveform is the decode of its codes
+        torch.testing.assert_close(plain.decode(out["codes"], model.feat_shape(
+            x.shape[-1])), out["recon_audio"], atol=5e-4, rtol=0)
+        assert bool(torch.isfinite(out["cm_loss"]).all())
+
+
+def _train_step(model, opt, x, num_streams, freeze):
+    from esc_tpu_torch.modules.losses import (complex_stft_loss,
+                                              mel_spectrogram_loss)
+    module = model.module
+    module.train()
+    out = module(x, num_streams, freeze)
+    loss = (0.25 * out["cm_loss"] + out["cb_loss"]
+            + 0.25 * mel_spectrogram_loss(out["raw_audio"], out["recon_audio"])
+            + complex_stft_loss(out["raw_feat"], out["recon_feat"])).mean()
+    opt.zero_grad()
+    loss.backward()
+    grads = [p.grad.clone() for p in module.parameters()]
+    opt.step()
+    module.eval()
+    return loss.detach(), grads
+
+
+@pytest.mark.parametrize("freeze", [True, False])
+def test_train_step_on_the_card_launches_no_kernel(rng, cuda, freeze):
+    # training runs the plain versions, as the JAX package does: a model
+    # built on the kernels and one built on the plain versions take the
+    # same step, up to the order of the card's atomic gradient sums
+    from esc_tpu_torch.train.optim import AdamW, make_schedule
+
+    x = torch.tensor(0.1 * rng.standard_normal((2, 7920)),
+                     dtype=torch.float32, device=cuda)
+    models = [ESC(seed=2, device=cuda, **SMALL),
+              ESC(seed=2, device=cuda, plain_ops=True, **SMALL)]
+    results = []
+    for m in models:
+        opt = AdamW(m.module.named_parameters(),
+                    make_schedule("constant", 1e-4), clip_norm=0.5)
+        before = (codebook_argmin.launches, window_attention.launches)
+        loss, grads = _train_step(m, opt, x, 6, freeze)
+        torch.cuda.synchronize()
+        assert (codebook_argmin.launches, window_attention.launches) == before
+        assert bool(torch.isfinite(loss))
+        results.append((loss, grads))
+    (l0, g0), (l1, g1) = results
+    torch.testing.assert_close(l0, l1, rtol=1e-5, atol=0)
+    num = sum(float(((a - b) ** 2).sum()) for a, b in zip(g0, g1))
+    den = sum(float((b ** 2).sum()) for b in g1)
+    assert (num / den) ** 0.5 < 1e-4
+
+
+def test_metrics_on_the_card_equal_the_cpu(rng, cuda):
+    from esc_tpu_torch import metrics
+
+    x = (0.1 * rng.standard_normal((3, 9600))).astype(np.float32)
+    y = (x + 0.05 * rng.standard_normal(x.shape)).astype(np.float32)
+    lengths = np.array([9600, 700, 5001])
+    xc, yc = torch.tensor(x, device=cuda), torch.tensor(y, device=cuda)
+    for fn in (metrics.MelSpectrogramDistance(), metrics.SISDR()):
+        for args in ((), (lengths,)):
+            np.testing.assert_allclose(fn(xc, yc, *args), fn(x, y, *args),
+                                       rtol=1e-4)
+    codes = torch.tensor(rng.integers(0, 64, (3, 6, 3, 30)), device=cuda)
+    a, b = metrics.EntropyCounter(64, 6, 3), metrics.EntropyCounter(64, 6, 3)
+    a.update(codes, lengths=lengths, samples_per_code=320)
+    b.update(codes.cpu(), lengths=lengths, samples_per_code=320)
+    assert np.array_equal(a.counts, b.counts)

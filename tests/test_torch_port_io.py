@@ -1,6 +1,14 @@
 """The port's readers and writers against the JAX package: YAML configs,
-WAV files, ``.escb`` bitstreams (v1 and v2) and ``.ckpt`` checkpoints."""
+WAV files, ``.escb`` bitstreams (v1 and v2) and ``.ckpt`` checkpoints.
 
+``jax_native`` (also used by the other port tests) builds the JAX
+package's native libraries where they are missing, so that a comparison
+with ``esc_tpu`` always meets its native path, whatever ran before it."""
+
+import ctypes
+import fcntl
+import importlib.util
+import os
 import struct
 import subprocess
 import sys
@@ -13,15 +21,71 @@ import yaml
 
 from esc_tpu.cli.bitstream import pack_codes as jax_pack_codes
 from esc_tpu.cli.bitstream import unpack_codes as jax_unpack_codes
-from esc_tpu.train.data import _load_wav_python
+from esc_tpu.train.data import load_wav as jax_load_wav
 from esc_tpu_torch import rangecoder
 from esc_tpu_torch.cli.bitstream import pack_codes, unpack_codes
 from esc_tpu_torch.io import load_wav
-from esc_tpu_torch.utils.config import parse_yaml, read_yaml
+from esc_tpu_torch.utils.config import dump_yaml, parse_yaml, read_yaml
 
 ROOT = Path(__file__).resolve().parents[1]
 CONFIGS = sorted(p for p in (ROOT / "configs").rglob("*")
                  if p.suffix in (".yaml", ".yml"))
+NATIVE_DIR = ROOT / "esc_tpu" / "native"
+# the libraries loaded by this process, kept open: a later load of the same
+# path by the JAX package gets this copy, whatever is written there since
+_NATIVE_HANDLES = []
+
+
+def _native_build():
+    spec = importlib.util.spec_from_file_location(
+        "_esc_native_build", ROOT / "native" / "build.py")
+    build = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(build)
+    return build
+
+
+def ensure_jax_native():
+    """Build ``esc_tpu/native/lib*.so`` where one is missing or does not
+    load, from ``native/build.py``'s sources with its command, then assert
+    that the JAX package takes its native paths (the WAV reader and the
+    range coder of ``.escb`` v2).
+
+    Each library is compiled to a name of its own and moved into place by
+    ``os.replace``, under an exclusive lock on the directory, so that two
+    test processes never load a half-written library."""
+    build = _native_build()
+    fd = os.open(NATIVE_DIR, os.O_RDONLY)
+    try:
+        fcntl.flock(fd, fcntl.LOCK_EX)
+        for src, lib in build.TARGETS.items():
+            out = NATIVE_DIR / lib
+            try:
+                _NATIVE_HANDLES.append(ctypes.CDLL(str(out)))
+                continue
+            except OSError:
+                pass
+            tmp = NATIVE_DIR / f".{lib}.{os.getpid()}.tmp"
+            try:
+                subprocess.run(
+                    ["g++", "-O3", "-march=native", "-std=c++17", "-shared",
+                     "-fPIC", "-pthread", os.path.join(build.HERE, src),
+                     "-o", str(tmp)], check=True, capture_output=True,
+                    timeout=300)
+                os.replace(tmp, out)
+            finally:
+                tmp.unlink(missing_ok=True)
+            _NATIVE_HANDLES.append(ctypes.CDLL(str(out)))
+    finally:
+        os.close(fd)
+    from esc_tpu.native import rangecoder, wavio  # noqa: F401  (must load)
+    codes = _skewed(np.random.default_rng(0), 1024, (1, 6, 3, 600))
+    assert jax_pack_codes(codes, 1024, (2, 1200))[4] == 2, \
+        "esc_tpu wrote .escb v1: its range coder did not load"
+
+
+@pytest.fixture(scope="module")
+def jax_native():
+    ensure_jax_native()
 
 
 # -------------------------------------------------------------------- YAML
@@ -29,6 +93,15 @@ CONFIGS = sorted(p for p in (ROOT / "configs").rglob("*")
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_read_yaml_equals_pyyaml_on_every_config(path):
     assert read_yaml(str(path)) == yaml.safe_load(path.read_text())
+
+
+@pytest.mark.parametrize("path", CONFIGS,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_dump_yaml_reads_back_in_both_readers(path):
+    config = read_yaml(str(path))
+    text = dump_yaml(config)
+    assert parse_yaml(text) == config
+    assert yaml.safe_load(text) == config
 
 
 SNIPPETS = [
@@ -68,16 +141,6 @@ def test_read_yaml_needs_no_pyyaml():
 
 
 # --------------------------------------------------------------------- WAV
-def _jax_load_wav(path):
-    """esc_tpu.train.data.load_wav's native loader (its Python fallback
-    where the library is not built or does not read the format)."""
-    try:
-        from esc_tpu.native import wavio
-        return wavio.load_wav(path)
-    except Exception:
-        return _load_wav_python(path)
-
-
 def _wav_bytes(samples: bytes, fmt: int, bits: int, channels: int,
                extensible: bool = False, extra: bytes = b"") -> bytes:
     block = channels * bits // 8
@@ -119,8 +182,8 @@ ODD_CHUNK = b"LIST" + struct.pack("<I", 5) + b"INFO!" + b"\x00"
 @pytest.mark.parametrize("extensible", [False, True],
                          ids=["wave", "extensible"])
 @pytest.mark.parametrize("kind", list(FORMATS))
-def test_load_wav_matches_jax_package(tmp_path, rng, kind, extensible,
-                                      channels, odd):
+def test_load_wav_matches_jax_package(jax_native, tmp_path, rng, kind,
+                                      extensible, channels, odd):
     fmt, bits = FORMATS[kind]
     n = 801  # an odd count: odd-sized data chunks at 8 and 24 bit
     data = _samples(rng, kind, n, channels)
@@ -137,7 +200,7 @@ def test_load_wav_matches_jax_package(tmp_path, rng, kind, extensible,
         np.testing.assert_array_equal(
             ours, (u8.astype(np.float32) - 128.0) / 128.0)
         return
-    theirs = _jax_load_wav(str(path))
+    theirs = jax_load_wav(str(path))
     np.testing.assert_allclose(ours, theirs, atol=1.5e-7, rtol=0)
 
 
@@ -173,7 +236,7 @@ CODES = {
 
 @pytest.mark.parametrize("entropy", [False, True], ids=["v1", "v2"])
 @pytest.mark.parametrize("name", list(CODES))
-def test_escb_bytes_match_jax_package(rng, name, entropy):
+def test_escb_bytes_match_jax_package(jax_native, rng, name, entropy):
     make, K, fs = CODES[name]
     codes = make(rng)
     blob = pack_codes(codes, K, fs, entropy=entropy)
@@ -195,8 +258,8 @@ def test_escb_v2_wins_on_skewed_and_not_on_uniform(rng):
     assert pack_codes(make(rng), K, fs)[4] == 1
 
 
-def test_escb_writes_v1_and_says_so_without_the_coder(rng, monkeypatch,
-                                                      capsys):
+def test_escb_writes_v1_and_says_so_without_the_coder(jax_native, rng,
+                                                      monkeypatch, capsys):
     def unavailable():
         raise RuntimeError("no C++ compiler")
 
@@ -300,3 +363,29 @@ def test_ckpt_model_state_loads_into_the_port(tmp_path):
     port.load_state_dict(state)  # strict: every weight of the port
     got = port.state_dict()
     assert all(torch.equal(got[k], want[k]) for k in want)
+
+
+def test_ckpt_writer_gives_flax_bytes(tmp_path, rng):
+    from flax import serialization
+
+    from esc_tpu.checkpoint import load_checkpoint as jax_load_checkpoint
+    from esc_tpu_torch.checkpoint import load_checkpoint, packb, \
+        save_checkpoint
+
+    tree = {"b": {"kernel": rng.standard_normal((3, 4)).astype(np.float32),
+                  "bias": np.zeros(4, np.float32)},
+            "a": [1, 2.5, "x" * 40, -3, 300, -40000, 2 ** 40, None, True],
+            "s": np.float32(2.5), "i": np.int64(7), "e": np.zeros((0, 3)),
+            "many": {str(i): i for i in range(20)}, "bin": b"\x00" * 300}
+    assert packb(tree) == serialization.msgpack_serialize(tree)
+    path = save_checkpoint(str(tmp_path), "best.ckpt", step=12,
+                           model_state=tree["b"], optimizer_state={"n": 1},
+                           scheduler_state={"type": "constant", "step": 12},
+                           best_perf=2.5, rng_state="{}")
+    assert [p.name for p in tmp_path.iterdir()] == ["best.ckpt"]
+    ours, theirs = load_checkpoint(path), jax_load_checkpoint(path)
+    _equal_trees(ours, theirs)
+    assert set(theirs) == {"step", "model_state_dict", "optimizer_state_dict",
+                           "scheduler_state_dict", "best_perf", "rng_state"}
+    np.testing.assert_array_equal(theirs["model_state_dict"]["kernel"],
+                                  tree["b"]["kernel"])

@@ -25,6 +25,7 @@ from esc_tpu_torch.convert import from_jax_params
 from esc_tpu_torch.io import load_wav, save_wav
 from esc_tpu_torch.models import ESC
 from esc_tpu_torch.serving import stream_map, stream_roundtrip
+from tests.test_torch_port_io import jax_native  # noqa: F401  (fixture)
 
 ROOT = Path(__file__).resolve().parents[1]
 CONFIG = dict(
@@ -256,7 +257,8 @@ def _run_cli(module, args, tmp):
 
 @pytest.mark.parametrize("extra", [[], ["--chunk_seconds", str(CHUNK)]],
                          ids=["whole", "chunked"])
-def test_both_clis_agree_on_a_jax_checkpoint(model_dir, tmp_path, extra):
+def test_both_clis_agree_on_a_jax_checkpoint(jax_native, model_dir, tmp_path,
+                                            extra):
     d, wav = model_dir
     common = ["--input", str(wav), "--model_path", str(d),
               "--num_streams", "6", *extra]
