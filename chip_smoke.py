@@ -42,14 +42,36 @@ Phases, each ending with one line that carries its seconds:
             then 20 steps in this process on one fixed batch: the loss
             falls, no kernel launches, and both kernels launch in the
             evaluation; steps per second and peak memory
-4. profile  device time by kernel over one roundtrip and one training step
-            (torch.profiler), then each kernel's, its plain version's and
-            the library call's device time at the shapes of phase 2
+7. adv      python -m esc_tpu_torch.cli.train --adv_training as a
+            subprocess for 4 steps of configs/9kbps_esc_base_adv.yaml (one
+            freeze step, the renewal, two evaluations): finite logged
+            losses, the GAN terms zero in the freeze step and not after,
+            pretrained/best/checkpoint.ckpt that load, the discriminator in
+            checkpoint.ckpt; a second subprocess with --pretrain_ckp on it
+            (generator lr/10, one evaluation before the first step); then
+            10 adversarial steps in this process at the config's batch of
+            9 x 3 s: no kernel launches, both kernels launch in the
+            evaluation; the discriminator's feature maps on the card
+            against the same module on the CPU; steps per second and peak
+            memory; one step run twice from one state with cuDNN's default
+            and with its deterministic algorithms (the weight arrays that
+            differ), and steps per second of each, in turns
+8. dp       the train CLI with --num_devices N, N the cards present, one
+            NCCL rank per card, 3 steps of a downsized ESC with a small
+            discriminator: at N = 1 its weights equal, bit for bit, those
+            of a run without --num_devices; at N >= 2, N ranks at batch 2
+            against one rank at batch 2N within the CPU test's bars (the
+            losses as logged, to their 4 decimals)
+4. profile  device time by kernel over one roundtrip, one training step and
+            one adversarial step, each half of it apart (torch.profiler),
+            the MRD spectrograms' device time; then each kernel's, its plain
+            version's and the library call's device time at the shapes of
+            phase 2
 
-Phases 5 and 6 run before phase 4: a profiler session slows the host's
-later launches in the same process. Each path of phases 3-6 is driven with
-the launch counts set to 0 just before it and read just after; every kernel
-must have run in it (in phase 6's training steps, none may).
+Phases 5-8 run before phase 4: a profiler session slows the host's later
+launches in the same process. Each path of phases 3-7 is driven with the
+launch counts set to 0 just before it and read just after; every kernel
+must have run in it (in phase 6's and 7's training steps, none may).
 
 The second-to-last line is the kernels' JSON summary, the last
 {"ok": true, "device": {...}}. Any failed check raises: the script then
@@ -59,6 +81,11 @@ exits non-zero and prints no result, as it does without a CUDA device.
 
 runs phase 2's timing alone for the esc_tpu_torch of another checkout
 (say a parent commit), for a comparison within one session.
+
+    python3 chip_smoke.py --data-parallel
+
+runs phase 8 alone, on every card of the host: the call to make on a
+machine with several cards.
 """
 
 from __future__ import annotations
@@ -123,8 +150,21 @@ EVAL_MEL_RTOL, EVAL_SISDR_RTOL = 1e-3, 1e-2
 # batch of 2 an epoch: epoch 1 is the freeze step
 TRAIN_SAMPLES, TRAIN_BATCH, TRAIN_EPOCHS = 32000, 2, 4
 FIXED_BATCH_STEPS, FIXED_BATCH_LR = 20, 3e-4
+# phase 7: the adversarial config's own batch, 9 clips of 3 s
+ADV_STEPS, ADV_CLIP = 10, 47920
+ADV_TIMED_STEPS = 5        # steps per turn of the determinism timing
+# the discriminator's feature maps, card against CPU: the bars of
+# tests/test_torch_port_adv.py (rtol 2e-3, atol 2e-4)
+FMAP_RTOL, FMAP_ATOL = 2e-3, 2e-4
+# phase 8: the verify skill's tiny ESC and a small discriminator, 3 steps
+DP_MODEL = dict(ESC_BASE, h_dims=[12, 12, 16, 16, 24, 32],
+                swin_heads=[2, 2, 2, 2, 2], swin_depth=1, codebook_size=64)
+DP_DISC = {"sample_rate": 16000, "rates": [], "periods": [2, 3],
+           "fft_sizes": [512, 256], "bands": [[0.0, 0.25], [0.25, 1.0]]}
+DP_SAMPLES, DP_EPOCHS = 8000, 3
 ROOT = Path(__file__).resolve().parent
 ESC_BASE_YAML = ROOT / "configs" / "9kbps_esc_base.yaml"  # as published
+ESC_ADV_YAML = ROOT / "configs" / "9kbps_esc_base_adv.yaml"
 
 
 def phase(name: str, t0: float, msg: str = "") -> float:
@@ -968,29 +1008,51 @@ def _loss_lines(text: str) -> list:
     return lines
 
 
+def train_data(tmp: Path, rng, clips: int = TRAIN_BATCH,
+               samples: int = TRAIN_SAMPLES) -> dict:
+    """Folders of ``clips`` generated clips of ``samples`` samples for
+    training and for validation, as a config's ``data`` section (batch
+    ``TRAIN_BATCH``)."""
+    from esc_tpu_torch.io import save_wav
+
+    folders = {}
+    for split, f0 in (("train", 110.0), ("val", 170.0)):
+        folders[split] = tmp / f"{split}_wavs"
+        folders[split].mkdir()
+        for i in range(clips):
+            save_wav(str(folders[split] / f"utt_{i}.wav"),
+                     speech_like(rng, samples, f0 + 60 * i))
+    return {"train_data_path": str(folders["train"]),
+            "val_data_path": str(folders["val"]), "num_workers": 2,
+            "train_bs_per_device": TRAIN_BATCH,
+            "val_bs_per_device": TRAIN_BATCH}
+
+
+def load_checkpoints(exp: Path, tmp: Path, dev) -> None:
+    """Each of ``pretrained``, ``best`` and ``checkpoint.ckpt`` under
+    ``exp`` loads, strictly, into the port's ``load_model``."""
+    from esc_tpu_torch.checkpoint import load_model_state
+    from esc_tpu_torch.cli.compress import load_model
+
+    for tag in ("pretrained.ckpt", "best.ckpt", "checkpoint.ckpt"):
+        d = tmp / f"load_{exp.name}_{tag}"
+        d.mkdir()
+        shutil.copy(exp / "config.yaml", d / "config.yaml")
+        shutil.copy(exp / tag, d / tag)
+        load_model(str(d), device=dev)          # strict: every weight
+        load_model_state(str(exp / tag))
+
+
 def check_train(kern, dev, rng, tmp: Path, val_calls) -> dict:
     """Phase 6: the train CLI as a user runs it, a few steps across the
     pretraining switch; then steps on one fixed batch in this process."""
     import argparse
 
-    from esc_tpu_torch.checkpoint import load_model_state
-    from esc_tpu_torch.cli.compress import load_model
-    from esc_tpu_torch.io import save_wav
     from esc_tpu_torch.train.trainer import Trainer
     from esc_tpu_torch.utils.config import read_yaml, write_yaml
 
     cfg = read_yaml(str(ESC_BASE_YAML))
-    folders = {}
-    for split, f0 in (("train", 110.0), ("val", 170.0)):
-        folders[split] = tmp / f"{split}_wavs"
-        folders[split].mkdir()
-        for i in range(TRAIN_BATCH):
-            save_wav(str(folders[split] / f"utt_{i}.wav"),
-                     speech_like(rng, TRAIN_SAMPLES, f0 + 60 * i))
-    cfg["data"] = {"train_data_path": str(folders["train"]),
-                   "val_data_path": str(folders["val"]), "num_workers": 2,
-                   "train_bs_per_device": TRAIN_BATCH,
-                   "val_bs_per_device": TRAIN_BATCH}
+    cfg["data"] = train_data(tmp, rng)
     write_yaml(str(tmp / "train.yaml"), cfg)
     out = tmp / "runs"
     said, cli_s = run_module("esc_tpu_torch.cli.train", [
@@ -1006,14 +1068,7 @@ def check_train(kern, dev, rng, tmp: Path, val_calls) -> dict:
                  "checkpoint saved as pretrained.ckpt"):
         if word not in said:
             raise RuntimeError(f"train CLI never said {word!r}:\n{said}")
-    exp = out / "smoke"
-    for tag in ("pretrained.ckpt", "best.ckpt", "checkpoint.ckpt"):
-        d = tmp / f"load_{tag}"
-        d.mkdir()
-        shutil.copy(exp / "config.yaml", d / "config.yaml")
-        shutil.copy(exp / tag, d / tag)
-        load_model(str(d), device=dev)          # strict: every weight
-        load_model_state(str(exp / tag))
+    load_checkpoints(out / "smoke", tmp, dev)
     print(f"  train CLI ({cli_s:.2f} s, process start included): "
           f"{len(logged)} steps, losses {logged}; pretrained, best and "
           f"checkpoint.ckpt load into the port's load_model", flush=True)
@@ -1067,9 +1122,299 @@ def check_train(kern, dev, rng, tmp: Path, val_calls) -> dict:
     return summary, lambda: trainer.train_step(x, 6, False)
 
 
-def profile_once(what: str, fn) -> None:
+GAN_LOSSES = ("gen_loss", "feat_loss", "disc_loss")
+
+
+def check_adv(kern, dev, rng, tmp: Path, val_calls):
+    """Phase 7: the adversarial train CLI as a user runs it, across the
+    pretraining switch, and its post-adversarial finetuning; then
+    adversarial steps on one batch at the config's own batch in this
+    process. Returns (summary, trainer, the batch on the card)."""
+    import argparse
+
+    from esc_tpu_torch.checkpoint import load_checkpoint
+    from esc_tpu_torch.convert import from_jax_params
+    from esc_tpu_torch.models.discriminator import Discriminator
+    from esc_tpu_torch.train.trainer_adv import TrainerAdv
+    from esc_tpu_torch.utils.config import read_yaml, write_yaml
+
+    cfg = read_yaml(str(ESC_ADV_YAML))
+    own_batch = cfg["data"]["train_bs_per_device"]
+    cfg["data"] = train_data(tmp, rng)
+    write_yaml(str(tmp / "adv.yaml"), cfg)
+    out = tmp / "runs"
+    common = ["--adv_training", "--config_path", str(tmp / "adv.yaml"),
+              "--save_path", str(out), "--seed", str(SEED), "--log_steps",
+              "1", "--val_metric", "SISDR"]
+    said, cli_s = run_module("esc_tpu_torch.cli.train", common + [
+        "--exp_name", "smoke_adv", "--num_epochs", str(TRAIN_EPOCHS),
+        "--num_pretraining_epochs", "1", "--dropout_rate", "0.5"])
+    logged = _loss_lines(said)
+    if len(logged) != TRAIN_EPOCHS or not all(
+            np.isfinite(v) for line in logged for v in line.values()):
+        raise RuntimeError(f"adversarial train CLI logged {logged}:\n{said}")
+    if any(logged[0][k] != 0.0 for k in GAN_LOSSES) or not all(
+            line[k] > 0.0 for line in logged[1:] for k in GAN_LOSSES):
+        raise RuntimeError(f"GAN losses not zero in the freeze step or zero "
+                           f"after it: {logged}")
+    for word in ("Discriminator #Parameters", "Pretraining done. "
+                 "Generator's Optimizer Renewed", "Performance at 9.00kbps",
+                 "checkpoint saved as pretrained.ckpt"):
+        if word not in said:
+            raise RuntimeError(f"adversarial train CLI never said "
+                               f"{word!r}:\n{said}")
+    exp = out / "smoke_adv"
+    load_checkpoints(exp, tmp, dev)
+    payload = load_checkpoint(str(exp / "checkpoint.ckpt"))
+    disc = Discriminator(**cfg["discriminator"])
+    disc.load_state_dict(from_jax_params(payload["model_disc_state_dict"]))
+    if payload["optimizer_disc_state_dict"]["count"] != TRAIN_EPOCHS - 1:
+        raise RuntimeError("checkpoint.ckpt: the discriminator's optimizer "
+                           f"counted {payload['optimizer_disc_state_dict']}")
+    lr = 1e-4
+    said2, finetune_s = run_module("esc_tpu_torch.cli.train", common + [
+        "--exp_name", "smoke_finetune", "--num_epochs", "1",
+        "--num_pretraining_epochs", "0", "--lr", str(lr), "--pretrain_ckp",
+        str(exp / "checkpoint.ckpt")])
+    pre_eval = said2.find("[Step 0/1] | Performance at")
+    if f"generator LR {lr / 10.0}" not in said2 or not 0 <= pre_eval < \
+            said2.find("[step 1/1"):
+        raise RuntimeError("--pretrain_ckp: no generator lr/10 or no "
+                           f"evaluation before the first step:\n{said2}")
+    print(f"  adversarial train CLI ({cli_s:.2f} s, process start "
+          f"included): {len(logged)} steps, losses {logged}; pretrained, "
+          f"best and checkpoint.ckpt load, the discriminator's weights and "
+          f"optimizer state in checkpoint.ckpt; --pretrain_ckp "
+          f"({finetune_s:.2f} s): generator lr {lr / 10.0}, evaluation "
+          "before the first step", flush=True)
+
+    cfg["data"]["train_bs_per_device"] = own_batch
+    args = argparse.Namespace(
+        exp_name="adv_in_process", lr=FIXED_BATCH_LR, num_epochs=1,
+        num_pretraining_epochs=0, num_warmup_steps=0, val_metric="SISDR",
+        scheduler_type="constant", dropout_rate=0.0, pretrain_ckp=None,
+        log_steps=5, save_path=str(out), seed=SEED, resume=False,
+        device=str(dev))
+    trainer = TrainerAdv(cfg, args)
+    trainer.model, _, trainer.val_dl = trainer.load()
+    x = torch.tensor(np.stack([speech_like(rng, ADV_CLIP, 100.0 + 15 * i)
+                               for i in range(own_batch)]), device=dev)
+    trainer.train_step(x, 6, False)             # warm-up, not counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def steps():
+        start = time.perf_counter()
+        auxes = [trainer.train_step(x, 6, False) for _ in range(ADV_STEPS)]
+        torch.cuda.synchronize()
+        return [{k: float(v) for k, v in a.items()} for a in auxes], \
+            time.perf_counter() - start
+
+    (auxes, steps_s), step_launches = counted(
+        kern, f"{ADV_STEPS} adversarial steps", steps, ran=False)
+    peak = torch.cuda.max_memory_allocated()
+    if not all(np.isfinite(v) for a in auxes for v in a.values()) or any(
+            a[k] <= 0.0 for a in auxes for k in GAN_LOSSES):
+        raise RuntimeError(f"adversarial steps: {auxes}")
+    _, launches = counted(kern, "the adversarial trainer's evaluation",
+                          lambda: trainer.evaluate(ADV_STEPS))
+    want = {"codebook_argmin": len(val_calls[0]),
+            "window_attention": len(val_calls[1])}
+    if launches != want:
+        raise RuntimeError(f"evaluation launches {launches}, predicted "
+                           f"{want}")
+    # the discriminator's feature maps on the card against the CPU's
+    cpu_disc = Discriminator(**cfg["discriminator"])
+    cpu_disc.load_state_dict({k: v.cpu() for k, v in
+                              trainer.disc.state_dict().items()})
+    with torch.no_grad():
+        ours = trainer.disc(x[:1])
+        ref = cpu_disc(x[:1].cpu())
+    fmap_err = 0.0
+    for di, (o, r) in enumerate(zip(ours, ref)):
+        for li, (f, g) in enumerate(zip(o, r)):
+            torch.testing.assert_close(
+                f.cpu(), g, rtol=FMAP_RTOL, atol=FMAP_ATOL,
+                msg=lambda m: f"discriminator {di} map {li}: {m}")
+            fmap_err = max(fmap_err, float((f.cpu() - g).abs().max()))
+    determinism = check_determinism(trainer, x)
+    rate = ADV_STEPS / steps_s
+    n_disc = sum(p.numel() for p in trainer.disc.parameters())
+    print(f"  {ADV_STEPS} adversarial steps on one batch of {own_batch} x "
+          f"{ADV_CLIP / 16000:.3f} s: losses {auxes[0]} -> {auxes[-1]}; no "
+          f"kernel launch; the evaluation launched {launches} as predicted; "
+          f"the discriminator ({n_disc / 1e6:.2f}M parameters) on the card "
+          f"within {fmap_err:.3g} of the CPU's (rtol {FMAP_RTOL}, atol "
+          f"{FMAP_ATOL})", flush=True)
+    print(f"adv: {rate:.3f} adversarial steps per second, peak memory "
+          f"{peak / 2 ** 30:.3f} GiB (ESC-Base + MPD/MRD discriminator, batch "
+          f"{own_batch} x 3 s, fp32, TF32 off)", flush=True)
+    summary = {"cli_losses": logged, "cli_s": cli_s,
+               "finetune_cli_s": finetune_s, "losses": auxes,
+               "steps_per_s": rate, "peak_bytes": peak,
+               "step_launches": step_launches, "eval_launches": launches,
+               "fmap_max_abs_err": fmap_err,
+               "disc_params": n_disc, "determinism": determinism}
+    return summary, trainer, x
+
+
+def _trainer_state(trainer) -> list:
+    """Every tensor an adversarial step changes: both modules' parameters
+    and both optimizers' moments (the counts are kept apart)."""
+    return [*trainer.model.module.parameters(), *trainer.disc.parameters(),
+            *trainer.opt.mu, *trainer.opt.nu, *trainer.opt_disc.mu,
+            *trainer.opt_disc.nu]
+
+
+def check_determinism(trainer, x) -> dict:
+    """Phase 7's view of ``train/trainer.py::reproducible``: one adversarial
+    step taken twice from the same state, with cuDNN's default algorithms
+    and with the deterministic ones a training step runs: the weight arrays
+    that differ between the two (none may with the deterministic ones);
+    then steps per second of each, in turns."""
+    from esc_tpu_torch.train.trainer_adv import TrainerAdv
+
+    gen, disc = (TrainerAdv.generator_step.__wrapped__,
+                 TrainerAdv.discriminator_step.__wrapped__)
+
+    def default_step():
+        recon = gen(trainer, x, 6, False)[1]
+        disc(trainer, recon, x, False)
+
+    def deterministic_step():
+        trainer.train_step(x, 6, False)
+
+    steps = {"default": default_step, "deterministic": deterministic_step}
+    state = [t.detach().clone() for t in _trainer_state(trainer)]
+    counts = (trainer.opt.count, trainer.opt_disc.count)
+    n_params = sum(1 for _ in trainer.model.module.parameters()) + sum(
+        1 for _ in trainer.disc.parameters())
+    differ = {}
+    for name, step in steps.items():
+        runs = []
+        for _ in range(2):
+            with torch.no_grad():
+                for t, v in zip(_trainer_state(trainer), state):
+                    t.copy_(v)
+            trainer.opt.count, trainer.opt_disc.count = counts
+            step()
+            runs.append([t.detach().clone() for t in
+                         _trainer_state(trainer)[:n_params]])
+        differ[name] = sum(not torch.equal(a, b) for a, b in zip(*runs))
+    if differ["deterministic"]:
+        raise RuntimeError(f"one adversarial step taken twice from one "
+                           f"state differs in {differ} weight arrays")
+    rates = {name: [] for name in steps}
+    for name in ("deterministic", "default", "default", "deterministic"):
+        steps[name]()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        for _ in range(ADV_TIMED_STEPS):
+            steps[name]()
+        torch.cuda.synchronize()
+        rates[name].append(ADV_TIMED_STEPS / (time.perf_counter() - start))
+    print(f"  one adversarial step taken twice from one state: "
+          f"{differ['default']} of {n_params} weight arrays differ with "
+          f"cuDNN's default algorithms, {differ['deterministic']} with the "
+          f"deterministic ones; steps per second, in turns: deterministic "
+          f"{[round(r, 3) for r in rates['deterministic']]}, default "
+          f"{[round(r, 3) for r in rates['default']]}", flush=True)
+    return {"arrays_differ": differ, "arrays": n_params,
+            "steps_per_s": rates}
+
+
+def _weights(path: Path) -> dict:
+    """A checkpoint's generator and discriminator weights, by flax path."""
+    from esc_tpu_torch.checkpoint import load_checkpoint
+
+    payload = load_checkpoint(str(path))
+    return {**_flat_tree(payload["model_state_dict"], "gen/"),
+            **_flat_tree(payload["model_disc_state_dict"], "disc/")}
+
+
+def check_data_parallel(rng, tmp: Path) -> dict:
+    """Phase 8: the adversarial train CLI with ``--num_devices`` N, N the
+    cards present, through its spawned NCCL ranks at batch 2, against one
+    process at batch 2N on the same clips."""
+    from esc_tpu_torch.convert import to_jax_params
+    from esc_tpu_torch.models import make_model
+    from esc_tpu_torch.models.discriminator import (Discriminator,
+                                                    init_discriminator)
+    from esc_tpu_torch.utils.config import write_yaml
+
+    n = torch.cuda.device_count()
+    data = train_data(tmp, rng, clips=2 * n, samples=DP_SAMPLES)
+    loss = {"stft_weight": 0.0, "cm_weight": 0.25, "cb_weight": 1.0,
+            "mel_weight": 15.0, "gen_weight": 1.0, "feat_weight": 2.0}
+
+    def run(name, per_device, extra):
+        cfg = {"data": dict(data, train_bs_per_device=per_device),
+               "model_name": "csvq+swinT", "model": DP_MODEL,
+               "discriminator": DP_DISC, "loss": loss}
+        write_yaml(str(tmp / f"{name}.yaml"), cfg)
+        said, wall = run_module("esc_tpu_torch.cli.train", [
+            "--adv_training", "--config_path", str(tmp / f"{name}.yaml"),
+            "--exp_name", name, "--save_path", str(tmp / "runs"),
+            "--num_epochs", str(DP_EPOCHS), "--num_pretraining_epochs", "1",
+            "--dropout_rate", "0.5", "--log_steps", "1", "--seed",
+            str(SEED), "--val_metric", "SISDR", *extra])
+        return said, _loss_lines(said), _weights(
+            tmp / "runs" / name / "checkpoint.ckpt"), wall
+
+    said, dp_losses, dp, dp_s = run("dp", 2, ["--num_devices", str(n)])
+    want = f"Training on {n} cuda rank"
+    if want not in said or f"Devices: {n} (cuda)" not in said:
+        raise RuntimeError(f"--num_devices {n}: no {want!r}:\n{said}")
+    if n == 1:
+        _, one_losses, one, one_s = run("one", 2, [])
+        diff = [k for k in one if not np.array_equal(one[k], dp[k])]
+        if diff or dp_losses != one_losses:
+            raise RuntimeError(f"1 NCCL rank against one process: weights "
+                               f"differ in {diff[:5]} ({len(diff)} arrays), "
+                               f"losses {dp_losses} / {one_losses}")
+        verdict = "weights equal bit for bit, losses equal"
+    else:
+        _, one_losses, one, one_s = run("one", 2 * n, ["--num_devices", "1"])
+        start = {**_flat_tree(to_jax_params(make_model(
+            DP_MODEL, seed=SEED, device="cpu").module), "gen/"),
+            **_flat_tree(to_jax_params(init_discriminator(
+                Discriminator(**DP_DISC), SEED + 1)), "disc/")}
+        for a, b in zip(dp_losses, one_losses):    # as logged: 4 decimals
+            np.testing.assert_allclose([a[k] for k in b], list(b.values()),
+                                       rtol=1e-5, atol=1e-4)
+        moved = sum(float(np.sum((one[k] - start[k]) ** 2)) for k in one)
+        apart = sum(float(np.sum((one[k] - dp[k]) ** 2)) for k in one)
+        if len(dp_losses) != DP_EPOCHS or (apart / moved) ** 0.5 >= 0.1:
+            raise RuntimeError(f"{n} ranks against one: {dp_losses} / "
+                               f"{one_losses}, weights apart "
+                               f"{(apart / moved) ** 0.5:.3g} of the "
+                               "distance moved")
+        verdict = (f"losses as logged within 1e-4, weights apart "
+                   f"{(apart / moved) ** 0.5:.3g} of the distance moved")
+    print(f"  --num_devices {n} ({dp_s:.2f} s, process start included) "
+          f"against one process ({one_s:.2f} s): {verdict}; losses "
+          f"{dp_losses}", flush=True)
+    print(f"dp: N = {n} card(s)", flush=True)
+    return {"cards": n, "losses": dp_losses,
+            "one_process_losses": one_losses, "cli_s": dp_s,
+            "one_process_s": one_s, "verdict": verdict}
+
+
+def _flat_tree(tree: dict, prefix: str = "") -> dict:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat_tree(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = np.asarray(v)
+    return out
+
+
+def profile_once(what: str, fn, top: int = 12) -> dict:
     """Wall time, device busy time and the top kernels of one ``fn()``
-    after a warm-up, by ``torch.profiler``."""
+    after a warm-up, by ``torch.profiler``: printed, and returned as
+    ``{"wall_ms", "device_ms", "launches"}`` (empty where the profiler
+    recorded no device time)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -1084,13 +1429,52 @@ def profile_once(what: str, fn) -> None:
     if dev_us <= 0:
         print(f"  {what}: the profiler recorded no device time: not "
               "measured", flush=True)
-        return
+        return {}
+    launches = sum(e.count for e in events)
     print(f"  {what}: wall {wall * 1e3:.2f} ms, device busy "
           f"{dev_us / 1e3:.2f} ms ({dev_us / 1e3 / (wall * 1e3):.1%}), "
-          f"{sum(e.count for e in events)} kernel launches", flush=True)
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
+          f"{launches} kernel launches", flush=True)
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
         print(f"    {e.self_device_time_total / 1e3:8.3f} ms "
+              f"({e.self_device_time_total / dev_us:5.1%}) "
               f"x{e.count:<4d} {e.key[:90]}", flush=True)
+    return {"wall_ms": wall * 1e3, "device_ms": dev_us / 1e3,
+            "launches": launches}
+
+
+def profile_adv(trainer, x) -> dict:
+    """Phase 4's view of one adversarial step of phase 7: the step, its
+    generator half and its discriminator half, each profiled apart, and
+    the MRD spectrograms' share of the step's device time (a forward of the
+    three on the fake and on the real in each half, and the backward of the
+    fake's in the generator's: five products of each DFT a step)."""
+    from esc_tpu_torch.models.discriminator import MRD
+
+    step = profile_once("one adversarial step (phase 7)",
+                        lambda: trainer.train_step(x, 6, False), top=16)
+    gen = profile_once("  its generator half (steps 1-3)",
+                       lambda: trainer.generator_step(x, 6, False), top=6)
+    recon = trainer.generator_step(x, 6, False)[1]
+    disc = profile_once("  its discriminator half (steps 4-5)",
+                        lambda: trainer.discriminator_step(recon, x, False),
+                        top=6)
+    mrds = [d for d in trainer.disc.discriminators if isinstance(d, MRD)]
+    y = trainer.disc.preprocess(x)
+    spec_ms = device_ms(lambda: [m.spectrogram(y) for m in mrds], reps=5)
+    out = {"step": step, "generator": gen, "discriminator": disc,
+           "mrd_spectrograms_ms": spec_ms}
+    if step and gen and disc:
+        halves = gen["device_ms"] + disc["device_ms"]
+        out.update(generator_share=gen["device_ms"] / halves,
+                   discriminator_share=disc["device_ms"] / halves,
+                   mrd_spectrogram_share=5 * spec_ms / step["device_ms"])
+        print(f"  adversarial step's device time: generator half "
+              f"{out['generator_share']:.1%}, discriminator half "
+              f"{out['discriminator_share']:.1%}; the MRD spectrograms "
+              f"(FFT {', '.join(str(m.window_length) for m in mrds)}) "
+              f"{spec_ms:.3f} ms a forward of the three, ~"
+              f"{out['mrd_spectrogram_share']:.1%} of the step", flush=True)
+    return out
 
 
 def time_kernels(kern, rng, dev, clock):
@@ -1123,12 +1507,27 @@ def kernel_times(root: str) -> int:
     return 0
 
 
+def data_parallel_alone() -> int:
+    """Phase 8 alone, on every card of the host; its JSON line last."""
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip(), flush=True)
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        result = check_data_parallel(np.random.default_rng(SEED), Path(tmp))
+    phase("8 dp", t0, f"--num_devices {result['cards']} ok")
+    print(json.dumps({"dp": result}), flush=True)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
     if len(sys.argv) == 3 and sys.argv[1] == "--kernels-from":
         return kernel_times(sys.argv[2])
+    if sys.argv[1:] == ["--data-parallel"]:
+        return data_parallel_alone()
     t0 = time.time()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1171,10 +1570,14 @@ def main() -> int:
     published = read_yaml(str(ESC_BASE_YAML))["model"]
     whole, chunked = cli_calls(published)
     sweep_calls, val_calls = eval_calls(published)
+    # phase 7's evaluation: the adversarial config's model (codebook dims 8)
+    adv_val = main_path_calls(read_yaml(str(ESC_ADV_YAML))["model"],
+                              TRAIN_BATCH, TRAIN_SAMPLES - 80,
+                              ESC_BASE["max_streams"], forward=True)
     sweep_argmin = [c for a, _ in sweep_calls for c in a]
     sweep_attn = {(G, nh, hd) for _, t in sweep_calls for G, nh, hd, _ in t}
     argmin_err = check_argmin(KERNELS, rng, dev, whole[0] + chunked[0]
-                              + sweep_argmin + val_calls[0])
+                              + sweep_argmin + val_calls[0] + adv_val[0])
     attn_err = check_attention(KERNELS, rng, dev, attn_shapes + ATTN_RAGGED
                                + ATTN_WIDE + sorted(sweep_attn))
     attn_err = max(attn_err, check_attention(
@@ -1182,7 +1585,8 @@ def main() -> int:
                                    whole[1] + chunked[1]}), batch=1))
     attn_err = max(attn_err, check_attention(
         KERNELS, rng, dev, sorted({(G, nh, hd) for G, nh, hd, _ in
-                                   val_calls[1]}), batch=TRAIN_BATCH))
+                                   val_calls[1] + adv_val[1]}),
+        batch=TRAIN_BATCH))
     # call times here, device times in phase 4: a profiler session slows
     # the host's later launches, which would show in phase 3
     timing = time_kernels(KERNELS, rng, dev, "call")
@@ -1250,10 +1654,19 @@ def main() -> int:
         training, train_step = check_train(KERNELS, dev, rng, Path(tmp),
                                            val_calls)
     t0 = phase("6 train", t0, "the train CLI and training steps ok")
+    with tempfile.TemporaryDirectory() as tmp:
+        adversarial, adv_trainer, adv_x = check_adv(KERNELS, dev, rng,
+                                                    Path(tmp), adv_val)
+    t0 = phase("7 adv", t0, "the adversarial train CLI, its finetuning "
+               "and adversarial steps ok")
+    with tempfile.TemporaryDirectory() as tmp:
+        data_parallel = check_data_parallel(rng, Path(tmp))
+    t0 = phase("8 dp", t0, f"--num_devices {data_parallel['cards']} ok")
 
     for what, fn in (("one roundtrip", lambda: model.roundtrip(
             x, num_streams=6)), ("one training step (phase 6)", train_step)):
         profile_once(what, fn)
+    adversarial["profile"] = profile_adv(adv_trainer, adv_x)
     for name, tm in time_kernels(KERNELS, rng, dev, "device").items():
         timing[name].update(tm)
     wide = time_wide(KERNELS, rng, dev)
@@ -1282,13 +1695,16 @@ def main() -> int:
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": tm["library_ms"],
             "library_call_ms": tm["library_call_ms"], "wide": wide[name],
-            "eval_launches": evaluation["launches"][name]})
+            "eval_launches": evaluation["launches"][name],
+            "adv_step_launches": adversarial["step_launches"][name],
+            "adv_eval_launches": adversarial["eval_launches"][name]})
     print(json.dumps({"paths": {
         "bf16_code_agreement": bf16_agree, "real_time_factor": {
             "fp32_plain": rtf["plain"], "fp32_kernels": rtf["kernels"],
             **{f"{k}_phase_3b": v for k, v in bf16_rtf.items()},
             **{f"stream_{k}": v for k, v in serving.items()}},
-        "cli": cli_run, "eval": evaluation, "train": training}}),
+        "cli": cli_run, "eval": evaluation, "train": training,
+        "adv": adversarial, "dp": data_parallel}}),
         flush=True)
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -243,11 +243,14 @@ def save_checkpoint(save_path: str, tag: str, *, step: int,
                     optimizer_state: Optional[Dict[str, Any]] = None,
                     scheduler_state: Optional[Dict[str, Any]] = None,
                     best_perf: float = -1.0,
-                    rng_state: Optional[str] = None) -> str:
+                    rng_state: Optional[str] = None,
+                    extra: Optional[Dict[str, Any]] = None) -> str:
     """Write ``{save_path}/{tag}`` with ``esc_tpu``'s top-level keys
-    (``esc_tpu/checkpoint.py:56-66``): ``model_state`` is the flax
+    (``esc_tpu/checkpoint.py:40-67``): ``model_state`` is the flax
     parameter tree (:func:`esc_tpu_torch.convert.to_jax_params`), the
-    optimizer state the port's own. The file is written under a name of its
+    optimizer state the port's own; ``extra`` adds keys, as the adversarial
+    trainer's ``model_disc_state_dict`` (a flax parameter tree) and
+    ``optimizer_disc_state_dict``. The file is written under a name of its
     own in the same directory and moved into place, so that a reader never
     sees half of it and two writers never share a temporary file."""
     os.makedirs(save_path, exist_ok=True)
@@ -257,6 +260,7 @@ def save_checkpoint(save_path: str, tag: str, *, step: int,
                "best_perf": float(best_perf)}
     if rng_state is not None:
         payload["rng_state"] = rng_state
+    payload.update(extra or {})
     path = os.path.join(save_path, tag)
     fd, tmp = tempfile.mkstemp(prefix=f".{tag}.", suffix=".tmp",
                                dir=save_path)

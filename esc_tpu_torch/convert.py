@@ -1,16 +1,28 @@
 """Weights carrier: JAX (flax) parameters <-> the port's state dict.
 
 Port of the key mapping of ``esc_tpu/convert.py`` (``flax_to_torch``,
-``_flax_path_to_torch_key``, ``torch_to_flax``) for the ESC modules. The
-input is the flax parameter tree as nested dicts of array-likes (numpy
-arrays, e.g. after ``jax.tree.map(np.asarray, variables)``), with or
-without the top-level ``"params"`` collection. No JAX is imported.
+``_flax_path_to_torch_key``, ``torch_to_flax``) for the ESC modules and the
+discriminator. The input is the flax parameter tree as nested dicts of
+array-likes (numpy arrays, e.g. after ``jax.tree.map(np.asarray,
+variables)``), with or without the top-level ``"params"`` collection. No
+JAX is imported.
 
     encoder/blocks_0/swint_blocks_1/attn/qkv/kernel
         -> encoder.blocks.0.swint_blocks.1.attn.qkv.weight  (transposed)
     quantizers_2/vqs_1/embedding -> quantizers.2.vqs.1.embedding.weight
     patch_embed/proj/kernel      -> patch_embed.proj.weight (HWIO -> OIHW)
     .../norm/scale               -> .../norm.weight
+
+Weight-normalised convolutions (flax ``nn.WeightNorm`` around ``nn.Conv``,
+``esc_tpu/convert.py:43-110``) map onto the port's direction and magnitude
+(:class:`esc_tpu_torch.models.discriminator.WNConv`):
+
+    discriminators_5/band_convs_0_1/Conv_0/kernel
+        -> discriminators.5.band_convs.0.1.weight_v  (HWIO -> OIHW, WIO -> OIW)
+    discriminators_5/band_convs_0_1/Conv_0/bias
+        -> discriminators.5.band_convs.0.1.bias
+    discriminators_5/band_convs_0_1/wn/Conv_0/kernel/scale
+        -> discriminators.5.band_convs.0.1.weight_g  ((out,) -> (out, 1, 1, 1))
 
 :func:`to_jax_params` is the inverse, from the port's module: what the
 port trains is saved in the layout the JAX package loads.
@@ -30,27 +42,39 @@ __all__ = ["from_jax_params", "to_jax_params", "flax_path_to_key"]
 _LIST_COMPONENT = re.compile(r"^(.*)_(\d+)$")
 # flax submodule names that are list entries in the torch module tree
 _LIST_NAMES = {"blocks", "swint_blocks", "quantizers", "vqs", "down_projs",
-               "up_projs"}
+               "up_projs", "discriminators", "convs", "band_convs"}
 _LEAF_NAMES = {"kernel": "weight", "scale": "weight", "bias": "bias",
                "embedding": "embedding.weight",
                "relative_position_bias_table": "relative_position_bias_table"}
+_WN_INNER = "Conv_0"                  # nn.WeightNorm's wrapped nn.Conv
+_WN_SCALE = "Conv_0/kernel/scale"     # its scale, one flax key
+
+
+def _split_list_name(name: str):
+    """``'band_convs_0_1'`` -> ``['band_convs', '0', '1']`` where the base
+    is a list of modules in the port; other names stay whole."""
+    idxs, base = [], name
+    while (m := _LIST_COMPONENT.match(base)):
+        base = m.group(1)
+        idxs.insert(0, m.group(2))
+    return [base] + idxs if idxs and base in _LIST_NAMES else [name]
 
 
 def flax_path_to_key(path) -> str:
     """``('encoder', 'blocks_0', 'attn', 'qkv', 'kernel')`` ->
-    ``'encoder.blocks.0.attn.qkv.weight'``."""
-    parts = []
-    for name in path[:-1]:
-        m = _LIST_COMPONENT.match(name)
-        if m and m.group(1) in _LIST_NAMES:
-            parts.extend(m.groups())
-        else:
-            parts.append(name)
-    leaf = path[-1]
-    if leaf not in _LEAF_NAMES:
+    ``'encoder.blocks.0.attn.qkv.weight'``; weight-normalised convolutions
+    as in the module docstring."""
+    *mods, leaf = path
+    if leaf == _WN_SCALE and mods and mods[-1] == "wn":
+        mods, name = mods[:-1], "weight_g"
+    elif mods and mods[-1] == _WN_INNER and leaf in ("kernel", "bias"):
+        mods, name = mods[:-1], "weight_v" if leaf == "kernel" else "bias"
+    elif leaf in _LEAF_NAMES:
+        name = _LEAF_NAMES[leaf]
+    else:
         raise KeyError(f"no torch name for flax leaf {'/'.join(path)}")
-    parts.append(_LEAF_NAMES[leaf])
-    return ".".join(parts)
+    parts = [p for m in mods for p in _split_list_name(m)]
+    return ".".join(parts + [name])
 
 
 def _walk(tree: Mapping[str, Any], prefix=()):
@@ -61,51 +85,66 @@ def _walk(tree: Mapping[str, Any], prefix=()):
             yield prefix + (name,), value
 
 
+_TO_TORCH = {2: (1, 0), 3: (2, 1, 0), 4: (3, 2, 0, 1)}   # flax -> torch
+_TO_FLAX = {2: (1, 0), 3: (2, 1, 0), 4: (2, 3, 1, 0)}    # torch -> flax
+
+
 def from_jax_params(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """Flax ESC parameters -> torch-key state dict of float32 tensors.
+    """Flax parameters -> torch-key state dict of float32 tensors.
 
     Dense kernels ``(in, out)`` become Linear weights ``(out, in)``; conv
-    kernels HWIO become OIHW; LayerNorm ``scale`` becomes ``weight``.
+    kernels HWIO / WIO become OIHW / OIW; LayerNorm ``scale`` becomes
+    ``weight``; a WeightNorm scale ``(out,)`` takes its kernel's rank.
     """
     if "params" in params and isinstance(params["params"], Mapping):
         params = params["params"]
-    out: Dict[str, torch.Tensor] = {}
+    out: Dict[str, np.ndarray] = {}
     for path, leaf in _walk(params):
         v = np.asarray(leaf, dtype=np.float32)
-        if path[-1] == "kernel" and v.ndim == 2:
-            v = v.T
-        elif path[-1] == "kernel" and v.ndim == 4:
-            v = v.transpose(3, 2, 0, 1)
-        out[flax_path_to_key(path)] = torch.tensor(np.ascontiguousarray(v))
-    return out
+        if path[-1] == "kernel" and v.ndim in _TO_TORCH:
+            v = v.transpose(_TO_TORCH[v.ndim])
+        out[flax_path_to_key(path)] = v
+    for key, v in out.items():
+        if key.endswith(".weight_g"):
+            rank = out[key[:-1] + "v"].ndim
+            out[key] = v.reshape((-1,) + (1,) * (rank - 1))
+    return {k: torch.tensor(np.ascontiguousarray(v)) for k, v in out.items()}
 
 
 def to_jax_params(module: nn.Module) -> Dict[str, Any]:
-    """The port's ESC module -> flax parameter tree (nested dicts of
-    float32 numpy arrays), the inverse of :func:`from_jax_params`: Linear
-    weights become Dense kernels ``(in, out)``, conv weights HWIO kernels,
-    LayerNorm weights ``scale``."""
+    """The port's module -> flax parameter tree (nested dicts of float32
+    numpy arrays), the inverse of :func:`from_jax_params`: Linear weights
+    become Dense kernels ``(in, out)``, conv weights HWIO / WIO kernels,
+    LayerNorm weights ``scale``, weight-normalised convolutions
+    ``Conv_0/kernel``, ``Conv_0/bias`` and ``wn/Conv_0/kernel/scale``."""
     tree: Dict[str, Any] = {}
     for name, sub in module.named_modules():
+        weight_norm = "weight_v" in sub._parameters
         for leaf, p in sub.named_parameters(recurse=False):
             v = p.detach().cpu().float().numpy()
-            if isinstance(sub, nn.Embedding):
-                path = name.split(".")           # .../vqs_m/embedding
+            mods = name.split(".") if name else []
+            if weight_norm:
+                if leaf == "weight_g":
+                    mods, leaf, v = mods + ["wn"], _WN_SCALE, v.reshape(-1)
+                else:
+                    mods = mods + [_WN_INNER]
+                    if leaf == "weight_v":
+                        leaf, v = "kernel", v.transpose(_TO_FLAX[v.ndim])
+            elif isinstance(sub, nn.Embedding):
+                mods, leaf = mods[:-1], mods[-1]     # .../vqs_m/embedding
             elif leaf == "weight" and isinstance(sub, nn.LayerNorm):
-                path = name.split(".") + ["scale"]
+                leaf = "scale"
             elif leaf == "weight":
-                path = name.split(".") + ["kernel"]
-                v = v.T if v.ndim == 2 else v.transpose(2, 3, 1, 0)
-            else:
-                path = name.split(".") + [leaf]
+                leaf, v = "kernel", v.transpose(_TO_FLAX[v.ndim])
             parts = []
-            for part in path:
-                if part.isdigit() and parts and parts[-1] in _LIST_NAMES:
+            for part in mods:
+                if part.isdigit() and parts and \
+                        _split_list_name(parts[-1] + "_0")[0] in _LIST_NAMES:
                     parts[-1] = f"{parts[-1]}_{part}"
                 else:
                     parts.append(part)
             node = tree
-            for part in parts[:-1]:
+            for part in parts:
                 node = node.setdefault(part, {})
-            node[parts[-1]] = np.ascontiguousarray(v)
+            node[leaf] = np.ascontiguousarray(v)
     return tree

@@ -6,7 +6,9 @@ drops the last 80 samples of every clip; ``DataLoader`` assembles numpy
 batches on host threads ahead of the step. Its order is a pure function of
 ``(seed, epoch)`` drawn by numpy's generator, and ``quantization_dropout``
 draws from a numpy generator too, so the same seed gives the port the data
-order and stream counts of the JAX package.
+order and stream counts of the JAX package. On several ranks a loader
+counts and orders global batches, as one process does, and each rank reads
+the files of its own block of rows (``shard``).
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ import os
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Iterator, List, Optional
+from typing import Callable, Iterator, List, Optional
 
 import numpy as np
 
@@ -57,6 +59,10 @@ class EvalSet:
     def __getitem__(self, i: int) -> np.ndarray:
         return load_wav(self.files[i])[:-80]
 
+    def length(self, i: int) -> int:
+        """``len(self[i])``, from the WAV header alone."""
+        return max(0, wav_frames(self.files[i]) - 80)
+
     def max_length(self) -> int:
         """The longest clip after the trim, from the WAV headers: one
         padded length for the whole eval sweep."""
@@ -76,9 +82,9 @@ class _Prefetcher:
     """Batches assembled by a thread pool into a bounded queue."""
 
     def __init__(self, dataset, order, batch_size, num_workers, prefetch=4,
-                 pad_to_length=None, drop_last=True):
+                 pad_to_length=None, drop_last=True, shard=None):
         self.ds, self.order, self.bs = dataset, order, batch_size
-        self.pad_to = pad_to_length
+        self.pad_to, self.shard = pad_to_length, shard
         self.q: "queue.Queue" = queue.Queue(maxsize=max(2, prefetch))
         if drop_last or pad_to_length is None:
             self.n_batches = len(order) // batch_size
@@ -89,6 +95,11 @@ class _Prefetcher:
         self._thread.start()
 
     def _load_batch(self, idxs):
+        if self.pad_to is None and self.shard is not None:
+            # this rank's rows, cropped to the global batch's shortest clip
+            n = min(self.ds.length(i) for i in idxs)
+            return np.stack([self.ds[i][:n] for i in self.shard(idxs)]
+                            ).astype(np.float32)
         items = [self.ds[i] for i in idxs]
         if self.pad_to is None:
             # training collate: crop to the shortest clip of the batch
@@ -143,10 +154,12 @@ class DataLoader:
 
     def __init__(self, dataset, batch_size: int, shuffle: bool,
                  num_workers: int = 0, seed: int = 0, drop_last: bool = True,
-                 pad_to_length: Optional[int] = None):
+                 pad_to_length: Optional[int] = None,
+                 shard: Optional[Callable[[np.ndarray], np.ndarray]] = None):
         self.ds, self.bs, self.shuffle = dataset, batch_size, shuffle
         self.workers, self.seed, self.epoch = num_workers, seed, 0
         self.drop_last, self.pad_to_length = drop_last, pad_to_length
+        self.shard = shard
 
     def set_epoch(self, epoch: int) -> None:
         self.epoch = int(epoch)
@@ -163,18 +176,21 @@ class DataLoader:
             self.epoch += 1  # for a plain `for epoch in ...` loop
         return iter(_Prefetcher(self.ds, order, self.bs, self.workers,
                                 pad_to_length=self.pad_to_length,
-                                drop_last=self.drop_last))
+                                drop_last=self.drop_last, shard=self.shard))
 
 
 def make_dataloader(data_path: str, batch_size: int, shuffle: bool,
                     num_workers: int = 0, seed: int = 0,
                     pad_eval: bool = False,
-                    pad_fn=esc_pad_length) -> DataLoader:
+                    pad_fn=esc_pad_length, shard=None) -> DataLoader:
     """Loader over a WAV folder (scripts/utils.py:42-46). ``pad_eval``
     pads every batch to ``pad_fn`` of the longest clip and yields
     ``(audio (B, L), lengths (B,))``, so that clips of unequal length score
-    alike at any batch size."""
+    alike at any batch size. ``shard`` (a training loader's) maps the rows
+    of a global batch to this rank's
+    (:meth:`esc_tpu_torch.parallel.DataParallel.shard`)."""
     ds = EvalSet(data_path)
     pad_to = pad_fn(ds.max_length()) if pad_eval else None
     return DataLoader(ds, batch_size, shuffle, num_workers, seed,
-                      drop_last=not pad_eval, pad_to_length=pad_to)
+                      drop_last=not pad_eval, pad_to_length=pad_to,
+                      shard=shard)

@@ -1,4 +1,4 @@
-"""The non-adversarial codec trainer on one device.
+"""The non-adversarial codec trainer, on one device or on several ranks.
 
 Port of ``esc_tpu/train/trainer.py`` (reference: scripts/trainer_no_adv.py):
 
@@ -12,7 +12,15 @@ Port of ``esc_tpu/train/trainer.py`` (reference: scripts/trainer_no_adv.py):
   keeps ``best.ckpt`` by ``--val_metric``; ``pretrained.ckpt`` at the
   switch and a rolling ``checkpoint.ckpt``;
 - epoch-aligned iteration, so that ``--resume`` replays the data order of
-  an uninterrupted run from the step after the checkpoint's.
+  an uninterrupted run from the step after the checkpoint's;
+- on several ranks (:mod:`esc_tpu_torch.parallel`), the loader's batch is
+  the global one, ``train_bs_per_device`` times the ranks, and each rank
+  reads its block of rows; the weights are broadcast from rank 0 before the
+  first step, the gradients averaged over the ranks before the clip, the
+  logged losses averaged, and the evaluation, ``config.yaml`` and the
+  checkpoints are rank 0's, the other ranks waiting at a barrier. Every
+  rank seeds the dropout's generator alike and draws from it every step,
+  so all ranks run the same number of streams.
 
 Training runs the kernels' plain versions (the modules' training mode), as
 the JAX package does; the per-epoch evaluation runs the kernels. The host
@@ -23,6 +31,7 @@ counterpart here.
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import os
@@ -38,18 +47,47 @@ from ..device import resolve_device
 from ..metrics import PESQ, SISDR, EntropyCounter, MelSpectrogramDistance
 from ..models import make_model
 from ..modules.losses import complex_stft_loss, mel_spectrogram_loss
+from ..parallel import DataParallel, process_is_main
 from ..utils.config import write_yaml
 from ..utils.profiling import StepTimer
 from .data import make_dataloader, quantization_dropout
 from .evaluate import eval_epoch
 from .optim import AdamW, make_schedule
 
-__all__ = ["Trainer"]
+__all__ = ["Trainer", "reproducible"]
+
+
+def reproducible(step):
+    """Run a training step (forward and backward) on cuDNN's deterministic
+    convolution algorithms, TF32 still off, so that two runs from one seed
+    give the same weights bit for bit, as ``esc_tpu``'s XLA programs do.
+    The default algorithms may add partial sums by atomics in any order:
+    on an H100, two otherwise identical runs of two adversarial steps gave
+    different weights in most arrays. Scoped to the step, so that serving
+    keeps cuDNN's default choice."""
+    @functools.wraps(step)
+    def wrapped(*args, **kwargs):
+        with torch.backends.cudnn.flags(
+                enabled=torch.backends.cudnn.enabled, benchmark=False,
+                deterministic=True, allow_tf32=False):
+            return step(*args, **kwargs)
+    return wrapped
+
+
+def print0(*args, **kwargs) -> None:
+    """``print`` on rank 0 only."""
+    if process_is_main():
+        print(*args, **kwargs)
 
 
 class Trainer:
     """Codec trainer, non-adversarial. ``config`` is the YAML config as a
-    dict; ``args`` the flags of ``python -m esc_tpu_torch.cli.train``."""
+    dict; ``args`` the flags of ``python -m esc_tpu_torch.cli.train``. On
+    several ranks, the process group is joined first
+    (:func:`esc_tpu_torch.parallel.init_distributed`) and ``device`` is this
+    rank's."""
+
+    renewed = "Optimizer Renewed"
 
     def __init__(self, config: dict, args, device=None):
         self.config, self.args = config, args
@@ -57,6 +95,7 @@ class Trainer:
             device if device is not None else getattr(args, "device", None))
         self.rng = np.random.default_rng(getattr(args, "seed", 53))
         self.bps_per_stream = 1.5
+        self.dp = DataParallel(self.device)
         self.timer = StepTimer(self.device)
         self.log_stats: Optional[Dict[str, list]] = None
         self.wandb = None
@@ -77,9 +116,11 @@ class Trainer:
         self.loss_weights = {k: float(cfg["loss"][f"{k}_weight"])
                              for k in ("cm", "cb", "mel", "stft")}
         data = cfg["data"]
+        n = self.dp.num_devices
         train_dl = make_dataloader(data["train_data_path"],
-                                   data["train_bs_per_device"], True,
-                                   data["num_workers"])
+                                   data["train_bs_per_device"] * n, True,
+                                   data["num_workers"],
+                                   shard=self.dp.shard if n > 1 else None)
         val_dl = make_dataloader(data["val_data_path"],
                                  data["val_bs_per_device"], False,
                                  data["num_workers"])
@@ -91,24 +132,25 @@ class Trainer:
                                       warmup_steps=args.num_warmup_steps)
         self.opt = AdamW(model.module.named_parameters(), self.schedule,
                          clip_norm=0.5)
-        print(f"<<<<Experimental Setup: {args.exp_name}>>>>")
-        print(f"   Device: {self.device}  Batch: Train "
-              f"{data['train_bs_per_device']} Val "
-              f"{data['val_bs_per_device']}  LR: {args.lr}")
-        print(f"   Total_Training_Steps: {args.train_steps}*"
-              f"{args.num_epochs}={args.max_train_steps}")
-        print(f"   Pre-Training_Steps: {args.train_steps}*"
-              f"{args.num_pretraining_epochs}={args.pretraining_steps}")
-        print(f"   Optimizer: AdamW    Scheduler: {args.scheduler_type}")
-        print(f"   Quantization_Dropout: {args.dropout_rate}")
-        print(f"   Model #Parameters: {model.num_params() / 1e6:.2f}M")
-        if getattr(args, "save_path", None):
+        print0(f"<<<<Experimental Setup: {args.exp_name}>>>>")
+        print0(f"   Devices: {n} ({self.device.type})  GlobalBatch: Train "
+               f"{data['train_bs_per_device'] * n} Val "
+               f"{data['val_bs_per_device']}  LR: {args.lr}")
+        print0(f"   Total_Training_Steps: {args.train_steps}*"
+               f"{args.num_epochs}={args.max_train_steps}")
+        print0(f"   Pre-Training_Steps: {args.train_steps}*"
+               f"{args.num_pretraining_epochs}={args.pretraining_steps}")
+        print0(f"   Optimizer: AdamW    Scheduler: {args.scheduler_type}")
+        print0(f"   Quantization_Dropout: {args.dropout_rate}")
+        print0(f"   Model #Parameters: {model.num_params() / 1e6:.2f}M")
+        if getattr(args, "save_path", None) and process_is_main():
             d = os.path.join(args.save_path, args.exp_name)
             os.makedirs(d, exist_ok=True)
             write_yaml(os.path.join(d, "config.yaml"), cfg)
         return model, train_dl, val_dl
 
     # ------------------------------------------------------------------
+    @reproducible
     def train_step(self, batch, num_streams: int, freeze: bool
                    ) -> Dict[str, torch.Tensor]:
         """One step on a batch ``(B, L)``: forward in training mode, the
@@ -126,6 +168,7 @@ class Trainer:
         loss = total.mean()
         self.opt.zero_grad()
         loss.backward()
+        self.dp.average_grads(self.opt.params)
         self.opt.step()
         return {"cm_loss": out["cm_loss"].mean().detach(),
                 "cb_loss": out["cb_loss"].mean().detach(),
@@ -137,14 +180,9 @@ class Trainer:
         args = self.args
         model, train_dl, val_dl = self.load()
         self.model, self.val_dl = model, val_dl
-        if getattr(args, "resume", False) and getattr(args, "save_path",
-                                                      None):
-            rolling = os.path.join(args.save_path, args.exp_name,
-                                   "checkpoint.ckpt")
-            if os.path.exists(rolling):
-                self._load_resume(rolling)
-        if getattr(args, "pretrain_ckp", None):
-            self._load_resume(args.pretrain_ckp)
+        self._restore()
+        self.dp.replicate(self._replicated())
+        self._before_training()
 
         step = self.start_step
         t0, window_steps = time.time(), 0
@@ -157,7 +195,7 @@ class Trainer:
                 if args.pretraining_steps > 0 \
                         and step == args.pretraining_steps + 1:
                     self.opt.renew()
-                    print("Optimizer Renewed")
+                    print0(self.renewed)
                 s = quantization_dropout(args.dropout_rate,
                                          model.max_streams, self.rng)
                 freeze = step < args.pretraining_steps
@@ -170,20 +208,47 @@ class Trainer:
                     window_steps = 0
                 if step > args.pretraining_steps \
                         and step % args.train_steps == 0 and step > 0:
-                    self.evaluate(step)
+                    self._on_main(self.evaluate, step)
                     window_steps = 0  # the evaluation is not a step's time
                 if (step + 1) % args.log_steps == 0:
                     self.log_step(step, time.time() - t0)
                 if step == args.pretraining_steps and step > 0:
-                    self.save_ckp(step, tag="pretrained.ckpt")
+                    self._on_main(self.save_ckp, step, tag="pretrained.ckpt")
                     window_steps = 0
                 step += 1
                 if step >= args.max_train_steps:
                     break
         # the last completed step, so that a longer run resumes at `step`
-        self.save_ckp(step - 1, tag="checkpoint.ckpt")
+        self._on_main(self.save_ckp, step - 1, tag="checkpoint.ckpt")
         model.module.eval()
         return model
+
+    def _restore(self) -> None:
+        """``--resume`` (the rolling checkpoint, where there is one), then
+        ``--pretrain_ckp``."""
+        args = self.args
+        if getattr(args, "resume", False) and getattr(args, "save_path",
+                                                      None):
+            rolling = os.path.join(args.save_path, args.exp_name,
+                                   "checkpoint.ckpt")
+            if os.path.exists(rolling):
+                self._load_resume(rolling)
+        if getattr(args, "pretrain_ckp", None):
+            self._load_resume(args.pretrain_ckp)
+
+    def _replicated(self):
+        """The tensors every rank takes from rank 0 before the first
+        step."""
+        return list(self.model.module.parameters())
+
+    def _before_training(self) -> None:
+        """Work between the restore and the first step (none here)."""
+
+    def _on_main(self, fn, *args, **kwargs) -> None:
+        """``fn`` on rank 0, then every rank waits for it."""
+        if process_is_main():
+            fn(*args, **kwargs)
+        self.dp.barrier()
 
     # ------------------------------------------------------------------
     def _log_accumulate(self, aux: Dict[str, torch.Tensor]) -> None:
@@ -193,15 +258,17 @@ class Trainer:
             self.log_stats[k].append(v)
 
     def log_step(self, step: int, elapsed: float) -> None:
-        """Print the log window's mean losses: one read of the device."""
-        stats = {k: float(torch.stack(v).float().mean().cpu())
-                 for k, v in self.log_stats.items()}
+        """Print the log window's mean losses, averaged over the ranks
+        (every rank calls this): one read of the device."""
+        means = self.dp.mean(torch.stack([torch.stack(v).float().mean()
+                                          for v in self.log_stats.values()]))
+        stats = dict(zip(self.log_stats, means.cpu().tolist()))
         self.log_stats = None
         stats.update(self.timer.summary())
         msg = " | ".join(f"{k}: {v:.4f}" for k, v in stats.items())
-        print(f"[step {step + 1}/{self.args.max_train_steps} "
-              f"{elapsed:.0f}s] {msg}", flush=True)
-        if self.wandb is not None:
+        print0(f"[step {step + 1}/{self.args.max_train_steps} "
+               f"{elapsed:.0f}s] {msg}", flush=True)
+        if self.wandb is not None and process_is_main():
             self.wandb.log(stats, step=step)
 
     def evaluate(self, step: int) -> None:
@@ -244,15 +311,24 @@ class Trainer:
     def save_ckp(self, step: int, tag: str) -> None:
         """The full training state in ``esc_tpu``'s layout
         (scripts/trainer_no_adv.py:152-162): weights, optimizer moments
-        and count, schedule, best score and the host RNG."""
+        and count, schedule, best score and the host RNG, and the
+        :meth:`_checkpoint_extra` keys. Rank 0's (see :meth:`_on_main`)."""
         save_checkpoint(
             os.path.join(self.args.save_path, self.args.exp_name), tag,
             step=step, model_state=to_jax_params(self.model.module),
             optimizer_state=self.opt.state_dict(),
             scheduler_state={"type": self.args.scheduler_type, "step": step},
             best_perf=self.best_perf,
-            rng_state=json.dumps(self.rng.bit_generator.state))
+            rng_state=json.dumps(self.rng.bit_generator.state),
+            extra=self._checkpoint_extra())
         print(f"[Step {step + 1}] | checkpoint saved as {tag}", flush=True)
+
+    def _checkpoint_extra(self) -> Dict:
+        """Keys a subclass adds to its checkpoints (none here)."""
+        return {}
+
+    def _restore_extra(self, payload: Dict) -> None:
+        """What a subclass restores from a ``.ckpt`` payload (none here)."""
 
     def _load_resume(self, path: str) -> None:
         """Weights from a ``.pth`` state dict, or the whole state from a
@@ -261,7 +337,7 @@ class Trainer:
         if path.endswith(".pth"):
             ckp = torch.load(path, map_location="cpu", weights_only=True)
             self.model.load_state_dict(ckp.get("model_state_dict", ckp))
-            print(f"Loaded torch checkpoint {path}")
+            print0(f"Loaded torch checkpoint {path}")
             return
         payload = load_checkpoint(path)
         self.model.load_state_dict(from_jax_params(
@@ -274,6 +350,7 @@ class Trainer:
             self.rng.bit_generator.state = json.loads(payload["rng_state"])
         self.start_step = int(payload.get("step", 0)) + 1
         self.best_perf = float(payload.get("best_perf", -1.0))
-        print(f"Loaded checkpoint {path}: step {self.start_step}, best "
-              f"{self.best_perf}" + (" (optimizer state restored)"
-                                     if restored else ""))
+        self._restore_extra(payload)
+        print0(f"Loaded checkpoint {path}: step {self.start_step}, best "
+               f"{self.best_perf}" + (" (optimizer state restored)"
+                                      if restored else ""))

@@ -399,3 +399,77 @@ def test_metrics_on_the_card_equal_the_cpu(rng, cuda):
     a.update(codes, lengths=lengths, samples_per_code=320)
     b.update(codes.cpu(), lengths=lengths, samples_per_code=320)
     assert np.array_equal(a.counts, b.counts)
+
+
+def test_discriminator_on_the_card_equals_the_cpu(rng, cuda):
+    # feature maps and GAN losses at tests/test_torch_port_adv.py's bars
+    # (rtol 2e-3, atol 2e-4), the MSD's resampling included
+    from esc_tpu_torch.models.discriminator import (Discriminator,
+                                                    init_discriminator)
+    from esc_tpu_torch.modules.gan_loss import (discriminator_loss,
+                                                generator_loss)
+
+    cfg = dict(rates=(2,), periods=(2, 3), fft_sizes=(512, 256))
+    cpu = init_discriminator(Discriminator(**cfg), 3)
+    card = init_discriminator(Discriminator(**cfg), 3).to(cuda)
+    fake = torch.tensor(0.3 * rng.standard_normal((2, 7920)),
+                        dtype=torch.float32)
+    real = torch.tensor(0.3 * rng.standard_normal((2, 7920)),
+                        dtype=torch.float32)
+    with torch.no_grad():
+        for o, r in zip(card(fake.to(cuda)), cpu(fake)):
+            for f, g in zip(o, r):
+                torch.testing.assert_close(f.cpu(), g, rtol=2e-3, atol=2e-4)
+        for ours, ref in ((discriminator_loss(card, fake.to(cuda),
+                                              real.to(cuda)),
+                           discriminator_loss(cpu, fake, real)),
+                          (generator_loss(card, fake.to(cuda),
+                                          real.to(cuda))[1],
+                           generator_loss(cpu, fake, real)[1])):
+            torch.testing.assert_close(ours.cpu(), ref, rtol=2e-3,
+                                       atol=2e-4)
+
+
+def test_adversarial_steps_on_the_card_are_reproducible(rng, cuda, tmp_path):
+    # two trainers from one seed take two adversarial steps on one batch:
+    # the same weights bit for bit (the steps run cuDNN's deterministic
+    # algorithms), and neither kernel launches in a step
+    import argparse
+
+    from esc_tpu_torch.io import save_wav
+    from esc_tpu_torch.train.trainer_adv import TrainerAdv
+
+    for i in range(2):
+        save_wav(str(tmp_path / f"clip_{i}.wav"),
+                 (0.1 * rng.standard_normal(8000)).astype(np.float32))
+    cfg = {"data": {"train_data_path": str(tmp_path),
+                    "val_data_path": str(tmp_path), "num_workers": 0,
+                    "train_bs_per_device": 2, "val_bs_per_device": 2},
+           "model_name": "csvq+swinT", "model": dict(SMALL),
+           "discriminator": {"rates": [], "periods": [2, 3],
+                             "fft_sizes": [512, 256]},
+           "loss": {"stft_weight": 0.0, "cm_weight": 0.25, "cb_weight": 1.0,
+                    "mel_weight": 15.0, "gen_weight": 1.0,
+                    "feat_weight": 2.0}}
+    x = torch.tensor(0.1 * rng.standard_normal((2, 7920)),
+                     dtype=torch.float32, device=cuda)
+    weights = []
+    for _ in range(2):
+        args = argparse.Namespace(
+            exp_name="card", lr=3e-4, num_epochs=1, num_pretraining_epochs=0,
+            num_warmup_steps=0, val_metric="SISDR", scheduler_type="constant",
+            dropout_rate=0.0, pretrain_ckp=None, log_steps=5,
+            save_path=str(tmp_path / "out"), seed=4, resume=False,
+            device="cuda")
+        t = TrainerAdv(cfg, args)
+        t.model, _, t.val_dl = t.load()
+        before = (codebook_argmin.launches, window_attention.launches)
+        for _ in range(2):
+            aux = t.train_step(x, 6, False)
+        torch.cuda.synchronize()
+        assert (codebook_argmin.launches, window_attention.launches) == before
+        assert all(bool(torch.isfinite(v)) for v in aux.values())
+        weights.append([p.detach().clone() for p in
+                        list(t.model.module.parameters())
+                        + list(t.disc.parameters())])
+    assert all(torch.equal(a, b) for a, b in zip(*weights))

@@ -180,12 +180,15 @@ def test_port_checkpoint_gives_the_same_codes_in_both_packages(runs, rng):
 
 
 def test_train_cli_refuses_what_is_not_ported(monkeypatch, tmp_path):
-    with pytest.raises(NotImplementedError, match="adversarial"):
-        train_cli.main(["--adv_training", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="num_devices"):
-        train_cli.main(["--num_devices", "2", "--device", "cpu"])
+    """Every flag of main.py is taken (adversarial and multi-GPU training
+    are ported: tests/test_torch_port_adv_train.py,
+    tests/test_torch_port_parallel.py); what the CLI refuses is a run on
+    the card where there is none."""
+    args = train_cli.parse_args(["--adv_training", "--num_devices", "2"])
+    assert args.adv_training and args.num_devices == 2
     args = train_cli.parse_args([])
     assert args.device == "cuda" and args.seed == 1234
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        train_cli.main(["--save_path", str(tmp_path)])
+    for extra in ([], ["--adv_training"], ["--num_devices", "2"]):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            train_cli.main(["--save_path", str(tmp_path)] + extra)
