@@ -62,16 +62,31 @@ Phases, each ending with one line that carries its seconds:
             of a run without --num_devices; at N >= 2, N ranks at batch 2
             against one rank at batch 2N within the CPU test's bars (the
             losses as logged, to their 4 decimals)
+9. ablation the three ablation codecs of configs/ablations/ (rvq+swinT,
+            csvq+conv, rvq+conv) at full width with random weights from
+            seed 0: roundtrips of 4 clips of 3 s at num_streams 1, 3 and 6
+            with their launch counts as predicted, codes against the same
+            model on the plain versions and the same codes decoded by both,
+            the real-time factor; python -m esc_tpu_torch.cli.compress on
+            rvq+conv (a model.pth, a .escb v2 that unpacks to the .npy);
+            python -m esc_tpu_torch.cli.test on csvq+conv (the sweep over
+            num_streams 1-6); python -m esc_tpu_torch.cli.train for 4 steps
+            of rvq+swinT (finite losses, checkpoints that load), steps on
+            one batch in this process (steps per second, peak memory, no
+            kernel launch; both kernels in the evaluation), and the train
+            CLI's refusal of the conv backbone; a rvq+conv .ckpt written
+            with its BatchNorm statistics and read back, the same codes
 4. profile  device time by kernel over one roundtrip, one training step and
             one adversarial step, each half of it apart (torch.profiler),
             the MRD spectrograms' device time; then each kernel's, its plain
             version's and the library call's device time at the shapes of
-            phase 2
+            phase 2 and at those of the ablations' roundtrips
 
-Phases 5-8 run before phase 4: a profiler session slows the host's later
-launches in the same process. Each path of phases 3-7 is driven with the
-launch counts set to 0 just before it and read just after; every kernel
-must have run in it (in phase 6's and 7's training steps, none may).
+Phases 5-9 run before phase 4: a profiler session slows the host's later
+launches in the same process. Each path of phases 3-7 and 9 is driven
+with the launch counts set to 0 just before it and read just after; every
+kernel of the path must have run in it (in phase 6's, 7's and 9's training
+steps, none may; in a conv codec's roundtrip, the attention may not).
 
 The second-to-last line is the kernels' JSON summary, the last
 {"ok": true, "device": {...}}. Any failed check raises: the script then
@@ -165,6 +180,12 @@ DP_SAMPLES, DP_EPOCHS = 8000, 3
 ROOT = Path(__file__).resolve().parent
 ESC_BASE_YAML = ROOT / "configs" / "9kbps_esc_base.yaml"  # as published
 ESC_ADV_YAML = ROOT / "configs" / "9kbps_esc_base_adv.yaml"
+# phase 9: the paper's ablations as published (codebook dims 8)
+ABLATION_YAMLS = {name: ROOT / "configs" / "ablations" /
+                  f"9kbps_{name.replace('+', '_')}.yaml"
+                  for name in ("rvq+swinT", "csvq+conv", "rvq+conv")}
+ABLATION_CLI_SECONDS = 10
+ABLATION_STEPS = 10
 
 
 def phase(name: str, t0: float, msg: str = "") -> float:
@@ -540,19 +561,23 @@ def time_wide(kern, rng, dev) -> dict:
 
 
 # ------------------------------------------------------------- phase 3
-def counted(kern, what: str, fn, ran: bool = True):
+def counted(kern, what: str, fn, ran: bool = True, expect=None):
     """Run ``fn`` with every launch count set to 0 just before and read
     just after; raise unless every kernel ran (with ``ran=False``: unless
-    none did). Returns (result, counts)."""
+    none did; with ``expect``, a set of names: unless those ran and no
+    other did). Returns (result, counts)."""
     for wrapper, _ in kern.values():
         wrapper.launches = 0
     result = fn()
     torch.cuda.synchronize()
     counts = {name: wrapper.launches for name, (wrapper, _) in kern.items()}
     print(f"  launches on {what}: {counts}", flush=True)
-    if ran and min(counts.values()) == 0:
+    must = set(kern) if ran else set()
+    if expect is not None:
+        must = set(expect)
+    if any(counts[k] == 0 for k in must):
         raise RuntimeError(f"a kernel never ran on {what}: {counts}")
-    if not ran and max(counts.values()) != 0:
+    if any(counts[k] != 0 for k in set(kern) - must):
         raise RuntimeError(f"a kernel ran on {what}: {counts}")
     return result, counts
 
@@ -1400,6 +1425,275 @@ def check_data_parallel(rng, tmp: Path) -> dict:
             "one_process_s": one_s, "verdict": verdict}
 
 
+# ------------------------------------------------------------- phase 9
+def ablation_calls(cfg: dict, name: str, batch: int, length: int,
+                   num_streams: int, forward: bool = False):
+    """The kernel calls of one ``roundtrip(x, num_streams)`` of an ablation
+    codec, or with ``forward`` of its eval forward, as
+    :func:`main_path_calls` gives ESC's: an RVQ codec quantizes its bottom
+    latent with ``num_streams`` residual stages per group (every stage in
+    the eval forward) and runs each Swin layer once, encoder then decoder;
+    the conv backbone runs no attention."""
+    streams = cfg["max_streams"] if forward and name.startswith("rvq") \
+        else num_streams
+    dims = cfg["codebook_dims"] if name.startswith("csvq") \
+        else [cfg["codebook_dim"]] * cfg["max_streams"]
+    # the conv configs have no Swin keys; their attention is dropped below
+    argmin, attn = main_path_calls(
+        {"window_size": 4, "swin_depth": 2, "swin_heads": [1] * 5, **cfg,
+         "codebook_dims": dims}, batch, length,
+        streams if name.startswith("csvq") else 1, forward)
+    if name.startswith("rvq"):
+        argmin = [argmin[0]] * (streams * cfg["group_size"])
+    return argmin, (attn if cfg["backbone"] == "transformer" else [])
+
+
+def ablation_model_dir(tmp: Path, name: str, seed: int):
+    """A model directory of an ablation: its config.yaml as published and
+    a model.pth of random weights from ``seed``. Returns (dir, config,
+    weights)."""
+    from esc_tpu_torch.models import make_model
+    from esc_tpu_torch.utils.config import read_yaml
+
+    d = tmp / name.replace("+", "_")
+    d.mkdir()
+    shutil.copy(ABLATION_YAMLS[name], d / "config.yaml")
+    cfg = read_yaml(str(d / "config.yaml"))
+    weights = make_model(cfg["model"], name, seed=seed,
+                         device="cpu").state_dict()
+    torch.save(weights, d / "model.pth")
+    return d, cfg, weights
+
+
+def check_ablation_roundtrips(kern, dev, rng) -> dict:
+    """Each ablation at full width: roundtrips at num_streams 1, 3, 6 with
+    the launches predicted, against the plain versions; real-time factor."""
+    from esc_tpu_torch.models import make_model
+    from esc_tpu_torch.utils.config import read_yaml
+
+    x = torch.tensor(0.1 * rng.standard_normal((BATCH, CLIP)),
+                     dtype=torch.float32)
+    out = {}
+    for name, path in ABLATION_YAMLS.items():
+        cfg = read_yaml(str(path))["model"]
+        model = make_model(cfg, name, seed=SEED, device=dev)
+        plain = make_model(cfg, name, seed=SEED, device=dev, plain_ops=True)
+        expect = {"codebook_argmin"} | (
+            {"window_attention"} if cfg["backbone"] == "transformer"
+            else set())
+        model.roundtrip(x, num_streams=6)           # warm-up, not counted
+        res = {"params": model.num_params(), "launches": {},
+               "mismatch": {}, "wave_err": {}}
+        for ns in STREAMS:
+            (codes, fs, recon), launches = counted(
+                kern, f"{name} roundtrip ns={ns}",
+                lambda: model.roundtrip(x, num_streams=ns), expect=expect)
+            calls = ablation_calls(cfg, name, BATCH, CLIP, ns)
+            want = {"codebook_argmin": len(calls[0]),
+                    "window_attention": len(calls[1])}
+            if launches != want:
+                raise RuntimeError(f"{name} ns={ns}: launches {launches}, "
+                                   f"predicted {want}")
+            shape = (BATCH, ns, cfg["group_size"], fs[1] // cfg["overlap"])
+            if tuple(codes.shape) != shape or codes.dtype != torch.int32 \
+                    or int(codes.min()) < 0 \
+                    or int(codes.max()) >= cfg["codebook_size"] \
+                    or tuple(recon.shape) != (BATCH, CLIP) \
+                    or not bool(torch.isfinite(recon).all()):
+                raise RuntimeError(f"{name} ns={ns}: codes "
+                                   f"{tuple(codes.shape)} {codes.dtype}, "
+                                   f"waveform {tuple(recon.shape)}")
+            pcodes, pfs = plain.encode(x, num_streams=ns)
+            mismatch = float((pcodes != codes).float().mean())
+            err = float((plain.decode(codes, fs) - recon).abs().max())
+            if mismatch > CODE_MISMATCH_MAX or tuple(pfs) != tuple(fs) \
+                    or err > WAVE_ATOL:
+                raise RuntimeError(f"{name} ns={ns}: code mismatch "
+                                   f"{mismatch:.4%} against the plain "
+                                   f"versions, same codes decoded {err:.3g}")
+            res["launches"][ns], res["mismatch"][ns] = launches, mismatch
+            res["wave_err"][ns] = err
+            print(f"  {name} ns={ns}: codes {shape} mismatch vs plain "
+                  f"{mismatch:.4%} (<= 0.2%), same codes decoded: max abs "
+                  f"diff {err:.3g} (<= 5e-4)", flush=True)
+        res["real_time_factor"] = paired({
+            "kernels": lambda: real_time_factor(model, x),
+            "plain": lambda: real_time_factor(plain, x)})
+        print(f"  {name} ({res['params'] / 1e6:.2f}M parameters): "
+              f"roundtrip ns=6, {BATCH} x 3 s, real-time factor "
+              f"{res['real_time_factor']} (pairs, order alternating)",
+              flush=True)
+        out[name] = res
+    return out
+
+
+def check_ablation_clis(kern, dev, rng, tmp: Path) -> dict:
+    """The compress CLI on rvq+conv, through a .escb v2; the test CLI on
+    csvq+conv; a rvq+conv .ckpt with its BatchNorm statistics written and
+    read back."""
+    from esc_tpu_torch.checkpoint import save_checkpoint
+    from esc_tpu_torch.cli.bitstream import unpack_codes
+    from esc_tpu_torch.cli.compress import load_model
+    from esc_tpu_torch.convert import to_jax_variables
+    from esc_tpu_torch.io import load_wav, save_wav
+
+    out = {}
+    d, cfg, _ = ablation_model_dir(tmp, "rvq+conv", SEED + 2)
+    wav = tmp / "speech.wav"
+    save_wav(str(wav), speech_like(rng, ABLATION_CLI_SECONDS * 16000, 140.0))
+    said, wall = run_module("esc_tpu_torch.cli.compress", [
+        "--input", str(wav), "--model_path", str(d), "--save_path",
+        str(tmp / "rvq_conv_out"), "--num_streams", "6"])
+    npy = np.load(tmp / "rvq_conv_out" / "encoded_9.0kbps_speech.npy")
+    blob = (tmp / "rvq_conv_out" / "encoded_9.0kbps_speech.escb").read_bytes()
+    codes, fs = unpack_codes(blob)
+    recon = load_wav(str(tmp / "rvq_conv_out" / "decoded_9.0kbps_speech.wav"))
+    if "model.pth" not in said or blob[4] != 2 \
+            or not np.array_equal(codes, npy) \
+            or not np.isfinite(recon).all():
+        raise RuntimeError(f"compress CLI on rvq+conv: .escb v{blob[4]}, "
+                           f"codes equal to the .npy "
+                           f"{np.array_equal(codes, npy)}:\n{said}")
+    model = load_model(str(d), device=dev)
+    direct, _ = model.encode(load_wav(str(wav))[None], num_streams=6)
+    if not np.array_equal(direct.cpu().numpy(), npy):
+        raise RuntimeError("compress CLI on rvq+conv: codes differ from "
+                           "the model's in this process")
+    out["compress_cli_s"] = wall
+    print(f"  compress CLI on rvq+conv: {wall:.2f} s for "
+          f"{ABLATION_CLI_SECONDS} s of audio (process start included); "
+          f".escb v2 {len(blob)} B (v1 would be "
+          f"{20 + (npy.size * 10 + 7) // 8} B) unpacks to the .npy codes "
+          f"{npy.shape}", flush=True)
+
+    save_checkpoint(str(d), "model.ckpt", step=0,
+                    model_state=to_jax_variables(model.module))
+    (d / "model.pth").unlink()
+    reread = load_model(str(d), device=dev)
+    again, _ = reread.encode(load_wav(str(wav))[None], num_streams=6)
+    stats = sum(1 for k in reread.state_dict() if "running_" in k)
+    if not torch.equal(again, direct) or not stats:
+        raise RuntimeError("rvq+conv .ckpt read back gives other codes")
+    print(f"  rvq+conv model.ckpt ({(d / 'model.ckpt').stat().st_size} B, "
+          f"{stats} BatchNorm statistics) read back: the same codes",
+          flush=True)
+
+    d, cfg, _ = ablation_model_dir(tmp, "csvq+conv", SEED + 3)
+    folder = tmp / "ablation_eval"
+    folder.mkdir()
+    for i, secs in enumerate(EVAL_SECONDS):
+        save_wav(str(folder / f"utt_{i}.wav"),
+                 speech_like(rng, int(secs * 16000), 120.0 + 40 * i))
+    said, wall = run_module("esc_tpu_torch.cli.test", [
+        "--eval_folder_path", str(folder), "--model_path", str(d),
+        "--batch_size", str(EVAL_BATCH)])
+    with open(d / "perf_stats.json") as f:
+        perf = json.load(f)
+    if sorted(perf) != sorted(PERF_KEYS) or any(
+            len(v) != 6 or not np.isfinite(v).all() for v in perf.values()):
+        raise RuntimeError(f"test CLI on csvq+conv: {perf}\n{said}")
+    out["test_cli_s"], out["test_cli_perf"] = wall, perf
+    print(f"  test CLI on csvq+conv: {wall:.2f} s (process start "
+          f"included), perf_stats.json {perf}", flush=True)
+    return out
+
+
+def check_ablation_training(kern, dev, rng, tmp: Path) -> dict:
+    """The train CLI on rvq+swinT across the freeze switch; steps on one
+    batch in this process; the train CLI's refusal of the conv backbone."""
+    import argparse
+
+    from esc_tpu_torch.train.trainer import Trainer
+    from esc_tpu_torch.utils.config import read_yaml, write_yaml
+
+    name = "rvq+swinT"
+    cfg = read_yaml(str(ABLATION_YAMLS[name]))
+    cfg["data"] = train_data(tmp, rng)
+    write_yaml(str(tmp / "rvq.yaml"), cfg)
+    runs = tmp / "runs"
+    said, cli_s = run_module("esc_tpu_torch.cli.train", [
+        "--config_path", str(tmp / "rvq.yaml"), "--exp_name", "rvq_swint",
+        "--num_epochs", str(TRAIN_EPOCHS), "--num_pretraining_epochs", "1",
+        "--dropout_rate", "0.5", "--log_steps", "1", "--save_path",
+        str(runs), "--seed", str(SEED), "--val_metric", "SISDR"])
+    logged = _loss_lines(said)
+    if len(logged) != TRAIN_EPOCHS or not all(
+            np.isfinite(v) for line in logged for v in line.values()):
+        raise RuntimeError(f"train CLI on {name} logged {logged}:\n{said}")
+    load_checkpoints(runs / "rvq_swint", tmp, dev)
+    print(f"  train CLI on {name} ({cli_s:.2f} s, process start included): "
+          f"{len(logged)} steps, losses {logged}; its checkpoints load",
+          flush=True)
+
+    args = argparse.Namespace(
+        exp_name="rvq_in_process", lr=FIXED_BATCH_LR, num_epochs=1,
+        num_pretraining_epochs=0, num_warmup_steps=0, val_metric="SISDR",
+        scheduler_type="constant", dropout_rate=0.0, pretrain_ckp=None,
+        log_steps=5, save_path=str(runs), seed=SEED, resume=False,
+        device=str(dev))
+    trainer = Trainer(cfg, args)
+    trainer.model, _, trainer.val_dl = trainer.load()
+    x = np.stack([speech_like(rng, TRAIN_SAMPLES - 80, 130.0 + 50 * i)
+                  for i in range(TRAIN_BATCH)])
+    trainer.train_step(x, 6, False)             # warm-up, not counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()        # this trainer's and others'
+
+    def steps():
+        start = time.perf_counter()
+        losses = [trainer.train_step(x, 6, False)["loss"]
+                  for _ in range(ABLATION_STEPS)]
+        torch.cuda.synchronize()
+        return [float(v) for v in losses], time.perf_counter() - start
+
+    (losses, steps_s), _ = counted(
+        kern, f"{ABLATION_STEPS} {name} training steps", steps, ran=False)
+    peak = torch.cuda.max_memory_allocated()
+    if not np.isfinite(losses).all():
+        raise RuntimeError(f"{name} steps: losses {losses}")
+    val = ablation_calls(cfg["model"], name, TRAIN_BATCH, TRAIN_SAMPLES - 80,
+                         6, forward=True)
+    _, launches = counted(kern, f"the {name} trainer's evaluation",
+                          lambda: trainer.evaluate(ABLATION_STEPS))
+    want = {"codebook_argmin": len(val[0]), "window_attention": len(val[1])}
+    if launches != want:
+        raise RuntimeError(f"{name} evaluation launches {launches}, "
+                           f"predicted {want}")
+    rate = ABLATION_STEPS / steps_s
+    print(f"train {name}: {rate:.3f} steps per second, peak memory "
+          f"{peak / 2 ** 30:.3f} GiB, of which {held / 2 ** 30:.3f} GiB "
+          f"allocated before the steps (its weights and optimizer, and "
+          f"what earlier phases still hold) (batch {TRAIN_BATCH} x 2 s, "
+          f"fp32, TF32 off), losses {losses}", flush=True)
+
+    refused = {}
+    for conv in ("csvq+conv", "rvq+conv"):
+        ccfg = read_yaml(str(ABLATION_YAMLS[conv]))
+        ccfg["data"] = cfg["data"]
+        write_yaml(str(tmp / "conv.yaml"), ccfg)
+        start = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "esc_tpu_torch.cli.train",
+             "--config_path", str(tmp / "conv.yaml"), "--exp_name", "conv",
+             "--num_epochs", "1", "--save_path", str(tmp / "conv_runs"),
+             "--device", dev.type],
+            cwd=ROOT, capture_output=True, text=True, timeout=300)
+        said = proc.stdout + proc.stderr
+        if proc.returncode == 0 or "NotImplementedError" not in said \
+                or "BatchNorm" not in said \
+                or (tmp / "conv_runs").exists():
+            raise RuntimeError(f"the train CLI did not refuse {conv}:\n"
+                               f"{said}")
+        refused[conv] = time.perf_counter() - start
+        last = said.strip().splitlines()[-1]
+        print(f"  train CLI on {conv}: refused ({last}), nothing written",
+              flush=True)
+    return {"cli_losses": logged, "cli_s": cli_s, "losses": losses,
+            "steps_per_s": rate, "peak_bytes": peak, "held_bytes": held,
+            "eval_launches": launches, "conv_refused_s": refused}
+
+
 def _flat_tree(tree: dict, prefix: str = "") -> dict:
     out = {}
     for k, v in tree.items():
@@ -1484,6 +1778,36 @@ def time_kernels(kern, rng, dev, clock):
                                            clock),
             "window_attention": time_attention(kern, rng, dev, attn_calls,
                                                clock)}
+
+
+def time_ablations(kern, rng, dev) -> dict:
+    """Device ms of each kernel, its plain version and the library call,
+    summed over the calls of one roundtrip at ns 6 of each ablation, with
+    the bound and the launches: codec -> kernel -> numbers."""
+    from esc_tpu_torch.utils.config import read_yaml
+
+    out = {}
+    for name, path in ABLATION_YAMLS.items():
+        cfg = read_yaml(str(path))["model"]
+        calls = dict(zip(("codebook_argmin", "window_attention"),
+                         ablation_calls(cfg, name, BATCH, CLIP, 6)))
+        out[name] = {}
+        for kname, kcalls in calls.items():
+            if not kcalls:
+                continue
+            tm = (time_argmin if kname == "codebook_argmin"
+                  else time_attention)(kern, rng, dev, kcalls, "device")
+            b_ms, b_by = bound_ms(tm["bytes"], tm["flops"])
+            out[name][kname] = {
+                "ms": tm["device_ms"], "plain_ms": tm["plain_ms"],
+                "library_ms": tm["library_ms"], "bound_ms": b_ms,
+                "bound_by": b_by, "launches": len(kcalls)}
+            print(f"  {name}: {kname} per roundtrip at ns=6 ({len(kcalls)} "
+                  f"launches), device ms: kernel {tm['device_ms']:.4f}, "
+                  f"plain {tm['plain_ms']:.4f}, library "
+                  f"{tm['library_ms']:.4f}, bound {b_ms:.4f} ({b_by})",
+                  flush=True)
+    return out
 
 
 def kernel_times(root: str) -> int:
@@ -1662,6 +1986,15 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         data_parallel = check_data_parallel(rng, Path(tmp))
     t0 = phase("8 dp", t0, f"--num_devices {data_parallel['cards']} ok")
+    ablations = {"roundtrips": check_ablation_roundtrips(KERNELS, dev, rng)}
+    with tempfile.TemporaryDirectory() as tmp:
+        ablations["clis"] = check_ablation_clis(KERNELS, dev, rng, Path(tmp))
+    with tempfile.TemporaryDirectory() as tmp:
+        ablations["train"] = check_ablation_training(KERNELS, dev, rng,
+                                                     Path(tmp))
+    t0 = phase("9 ablation", t0, "rvq+swinT, csvq+conv and rvq+conv: "
+               "roundtrips, the three CLIs, training and its refusal, "
+               "checkpoints ok")
 
     for what, fn in (("one roundtrip", lambda: model.roundtrip(
             x, num_streams=6)), ("one training step (phase 6)", train_step)):
@@ -1670,6 +2003,7 @@ def main() -> int:
     for name, tm in time_kernels(KERNELS, rng, dev, "device").items():
         timing[name].update(tm)
     wide = time_wide(KERNELS, rng, dev)
+    ablation_timing = time_ablations(KERNELS, rng, dev)
     for name, tm in timing.items():
         print(f"  {name} per roundtrip at ns=6, device / call ms: kernel "
               f"{tm['device_ms']:.4f} / {tm['call_ms']:.4f}, plain "
@@ -1697,14 +2031,16 @@ def main() -> int:
             "library_call_ms": tm["library_call_ms"], "wide": wide[name],
             "eval_launches": evaluation["launches"][name],
             "adv_step_launches": adversarial["step_launches"][name],
-            "adv_eval_launches": adversarial["eval_launches"][name]})
+            "adv_eval_launches": adversarial["eval_launches"][name],
+            "ablation": {codec: tms[name] for codec, tms in
+                         ablation_timing.items() if name in tms}})
     print(json.dumps({"paths": {
         "bf16_code_agreement": bf16_agree, "real_time_factor": {
             "fp32_plain": rtf["plain"], "fp32_kernels": rtf["kernels"],
             **{f"{k}_phase_3b": v for k, v in bf16_rtf.items()},
             **{f"stream_{k}": v for k, v in serving.items()}},
         "cli": cli_run, "eval": evaluation, "train": training,
-        "adv": adversarial, "dp": data_parallel}}),
+        "adv": adversarial, "dp": data_parallel, "ablation": ablations}}),
         flush=True)
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {

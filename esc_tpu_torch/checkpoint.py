@@ -14,7 +14,10 @@ chunk size come as ``{"__msgpack_chunked_array__": True, "shape": ...,
 :func:`load_checkpoint` returns that tree with numpy leaves, as
 ``flax.serialization.msgpack_restore`` does (msgpack arrays as lists;
 bfloat16 arrays widened, exactly, to float32). :func:`load_model_state`
-turns a checkpoint's ``model_state_dict`` into the port's state dict.
+turns a checkpoint's ``model_state_dict`` into the port's state dict: a
+flax parameter tree (what both trainers write), or flax variables
+``{"params": ..., "batch_stats": ...}``, whose BatchNorm statistics (the
+convolution backbone's) become the modules' running buffers.
 :func:`save_checkpoint` writes the training state in the same layout and
 encoding (:func:`packb`, the bytes ``flax.serialization.msgpack_serialize``
 gives for such a tree), the weights in flax's parameter layout, so that
@@ -247,8 +250,10 @@ def save_checkpoint(save_path: str, tag: str, *, step: int,
                     extra: Optional[Dict[str, Any]] = None) -> str:
     """Write ``{save_path}/{tag}`` with ``esc_tpu``'s top-level keys
     (``esc_tpu/checkpoint.py:40-67``): ``model_state`` is the flax
-    parameter tree (:func:`esc_tpu_torch.convert.to_jax_params`), the
-    optimizer state the port's own; ``extra`` adds keys, as the adversarial
+    parameter tree (:func:`esc_tpu_torch.convert.to_jax_params`), or the
+    flax variables of a codec with BatchNorm statistics
+    (:func:`esc_tpu_torch.convert.to_jax_variables`), the optimizer state
+    the port's own; ``extra`` adds keys, as the adversarial
     trainer's ``model_disc_state_dict`` (a flax parameter tree) and
     ``optimizer_disc_state_dict``. The file is written under a name of its
     own in the same directory and moved into place, so that a reader never

@@ -7,11 +7,12 @@
 Writes ``decoded_{kbps}kbps_{name}.wav``, the codes as
 ``encoded_{kbps}kbps_{name}.npy`` and the ``.escb`` stream (version 2, range
 coded, where that is smaller; else version 1, bit-packed). ``model_path``
-holds ``config.yaml`` and, optionally, weights, taken from the first of
-``model.pth``, ``best.pth`` (torch state dicts with the reference's keys),
-``model.ckpt``, ``best.ckpt``, ``checkpoint.ckpt``, ``pretrained.ckpt``
-(the JAX package's flax checkpoints) that exists; without one the model is
-randomly initialised from ``--seed``. ``--dtype bfloat16`` is the bf16
+holds ``config.yaml`` (any of the four codecs: its ``model_name``) and,
+optionally, weights, taken from the first of ``model.pth``, ``best.pth``
+(torch state dicts with the reference's keys), ``model.ckpt``,
+``best.ckpt``, ``checkpoint.ckpt``, ``pretrained.ckpt`` (flax checkpoints,
+with a conv codec's BatchNorm statistics) that exists; without one the
+model is randomly initialised from ``--seed``. ``--dtype bfloat16`` is the bf16
 serving mode; ``--chunk_seconds`` encodes and decodes in chunks of that
 length, in constant memory.
 """
@@ -27,7 +28,7 @@ import torch
 
 from ..checkpoint import load_model_state
 from ..io import load_wav, save_wav
-from ..models import ESC, make_model
+from ..models import Codec, make_model
 from ..utils.config import read_yaml
 from .bitstream import pack_codes
 
@@ -66,8 +67,9 @@ CANDIDATES = ("model.pth", "best.pth", "model.ckpt", "best.ckpt",
 
 
 def load_model(model_path: str, seed: int = 0,
-               device: Optional[str] = None, dtype: str = "float32") -> ESC:
-    """Build the codec from ``{model_path}/config.yaml`` and load the first
+               device: Optional[str] = None, dtype: str = "float32") -> Codec:
+    """Build the codec that ``{model_path}/config.yaml`` names (its
+    ``model_name``, ``csvq+swinT`` where it names none) and load the first
     of :data:`CANDIDATES` that exists: a ``.pth`` (a state dict, or a
     reference checkpoint holding one under ``model_state_dict``) or a
     ``.ckpt`` written by the JAX package."""
@@ -90,7 +92,7 @@ def load_model(model_path: str, seed: int = 0,
     return model
 
 
-def compress_file(model: ESC, wav_path: str, out_dir: str,
+def compress_file(model: Codec, wav_path: str, out_dir: str,
                   num_streams: int = 6,
                   chunk_seconds: Optional[float] = None) -> dict:
     """Encode and decode one WAV file with a built model (in chunks of

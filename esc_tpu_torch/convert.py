@@ -13,6 +13,22 @@ JAX is imported.
     patch_embed/proj/kernel      -> patch_embed.proj.weight (HWIO -> OIHW)
     .../norm/scale               -> .../norm.weight
 
+The convolution backbone's layers (``esc_tpu/modules/convolution.py``)
+keep their flax names, list entries included; its BatchNorm statistics,
+flax's ``batch_stats`` collection, are the modules' running buffers:
+
+    encoder/blocks_0/blocks_0/block_0/conv/kernel
+        -> encoder.blocks.0.blocks.0.block.0.conv.weight  (HWIO -> OIHW)
+    decoder/blocks_0/blocks_1/conv/kernel   (a ConvTranspose, HWOI)
+        -> decoder.blocks.0.blocks.1.conv.weight          (IOHW)
+    .../block_1/scale, .../block_2/weight (BatchNorm, PReLU)
+        -> .../block.1.weight, .../block.2.weight
+    batch_stats: .../block_1/mean, var -> .../block.1.running_mean, _var
+
+A flax ``ConvTranspose(transpose_kernel=True)`` kernel is HWOI, and torch's
+``ConvTranspose2d`` weight IOHW, so the one permutation of conv kernels
+carries both (``esc_tpu/convert.py:12-19``).
+
 Weight-normalised convolutions (flax ``nn.WeightNorm`` around ``nn.Conv``,
 ``esc_tpu/convert.py:43-110``) map onto the port's direction and magnitude
 (:class:`esc_tpu_torch.models.discriminator.WNConv`):
@@ -37,15 +53,19 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-__all__ = ["from_jax_params", "to_jax_params", "flax_path_to_key"]
+__all__ = ["from_jax_params", "to_jax_params", "to_jax_variables",
+           "flax_path_to_key"]
 
 _LIST_COMPONENT = re.compile(r"^(.*)_(\d+)$")
 # flax submodule names that are list entries in the torch module tree
 _LIST_NAMES = {"blocks", "swint_blocks", "quantizers", "vqs", "down_projs",
-               "up_projs", "discriminators", "convs", "band_convs"}
+               "up_projs", "discriminators", "convs", "band_convs", "block"}
 _LEAF_NAMES = {"kernel": "weight", "scale": "weight", "bias": "bias",
+               "weight": "weight",                          # PReLU's slope
                "embedding": "embedding.weight",
-               "relative_position_bias_table": "relative_position_bias_table"}
+               "relative_position_bias_table": "relative_position_bias_table",
+               "mean": "running_mean", "var": "running_var"}  # batch_stats
+_STATS = {"running_mean": "mean", "running_var": "var"}
 _WN_INNER = "Conv_0"                  # nn.WeightNorm's wrapped nn.Conv
 _WN_SCALE = "Conv_0/kernel/scale"     # its scale, one flax key
 
@@ -92,14 +112,18 @@ _TO_FLAX = {2: (1, 0), 3: (2, 1, 0), 4: (2, 3, 1, 0)}    # torch -> flax
 def from_jax_params(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """Flax parameters -> torch-key state dict of float32 tensors.
 
+    ``params`` is the parameter tree, or flax variables ``{"params": ...,
+    "batch_stats": ...}``, whose statistics become BatchNorm buffers.
     Dense kernels ``(in, out)`` become Linear weights ``(out, in)``; conv
     kernels HWIO / WIO become OIHW / OIW; LayerNorm ``scale`` becomes
     ``weight``; a WeightNorm scale ``(out,)`` takes its kernel's rank.
     """
+    stats: Mapping[str, Any] = {}
     if "params" in params and isinstance(params["params"], Mapping):
+        stats = params.get("batch_stats") or {}
         params = params["params"]
     out: Dict[str, np.ndarray] = {}
-    for path, leaf in _walk(params):
+    for path, leaf in list(_walk(params)) + list(_walk(stats)):
         v = np.asarray(leaf, dtype=np.float32)
         if path[-1] == "kernel" and v.ndim in _TO_TORCH:
             v = v.transpose(_TO_TORCH[v.ndim])
@@ -111,12 +135,50 @@ def from_jax_params(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     return {k: torch.tensor(np.ascontiguousarray(v)) for k, v in out.items()}
 
 
+def _flax_parts(name: str):
+    """A torch module path -> its flax module names: ``blocks.0`` ->
+    ``blocks_0``, for the lists of :data:`_LIST_NAMES`."""
+    parts = []
+    for part in name.split(".") if name else []:
+        if part.isdigit() and parts and \
+                _split_list_name(parts[-1] + "_0")[0] in _LIST_NAMES:
+            parts[-1] = f"{parts[-1]}_{part}"
+        else:
+            parts.append(part)
+    return parts
+
+
+def _put(tree: Dict[str, Any], parts, leaf: str, v: np.ndarray) -> None:
+    node = tree
+    for part in parts:
+        node = node.setdefault(part, {})
+    node[leaf] = np.ascontiguousarray(v)
+
+
+def to_jax_variables(module: nn.Module) -> Dict[str, Any]:
+    """The port's module -> flax variables: ``{"params": ...}``
+    (:func:`to_jax_params`) and, where the module has BatchNorm layers,
+    ``"batch_stats"`` with their running means and variances."""
+    stats: Dict[str, Any] = {}
+    for name, sub in module.named_modules():
+        if isinstance(sub, nn.modules.batchnorm._BatchNorm):
+            for buf, leaf in _STATS.items():
+                _put(stats, _flax_parts(name), leaf,
+                     getattr(sub, buf).detach().cpu().float().numpy())
+    variables = {"params": to_jax_params(module)}
+    if stats:
+        variables["batch_stats"] = stats
+    return variables
+
+
 def to_jax_params(module: nn.Module) -> Dict[str, Any]:
     """The port's module -> flax parameter tree (nested dicts of float32
     numpy arrays), the inverse of :func:`from_jax_params`: Linear weights
-    become Dense kernels ``(in, out)``, conv weights HWIO / WIO kernels,
-    LayerNorm weights ``scale``, weight-normalised convolutions
-    ``Conv_0/kernel``, ``Conv_0/bias`` and ``wn/Conv_0/kernel/scale``."""
+    become Dense kernels ``(in, out)``, conv weights HWIO / WIO kernels
+    (transposed convs' IOHW weights HWOI ones), LayerNorm and BatchNorm
+    weights ``scale``, PReLU slopes stay ``weight``, weight-normalised
+    convolutions ``Conv_0/kernel``, ``Conv_0/bias`` and
+    ``wn/Conv_0/kernel/scale``."""
     tree: Dict[str, Any] = {}
     for name, sub in module.named_modules():
         weight_norm = "weight_v" in sub._parameters
@@ -132,19 +194,10 @@ def to_jax_params(module: nn.Module) -> Dict[str, Any]:
                         leaf, v = "kernel", v.transpose(_TO_FLAX[v.ndim])
             elif isinstance(sub, nn.Embedding):
                 mods, leaf = mods[:-1], mods[-1]     # .../vqs_m/embedding
-            elif leaf == "weight" and isinstance(sub, nn.LayerNorm):
+            elif leaf == "weight" and isinstance(
+                    sub, (nn.LayerNorm, nn.modules.batchnorm._BatchNorm)):
                 leaf = "scale"
-            elif leaf == "weight":
+            elif leaf == "weight" and v.ndim > 1:
                 leaf, v = "kernel", v.transpose(_TO_FLAX[v.ndim])
-            parts = []
-            for part in mods:
-                if part.isdigit() and parts and \
-                        _split_list_name(parts[-1] + "_0")[0] in _LIST_NAMES:
-                    parts[-1] = f"{parts[-1]}_{part}"
-                else:
-                    parts.append(part)
-            node = tree
-            for part in parts:
-                node = node.setdefault(part, {})
-            node[leaf] = np.ascontiguousarray(v)
+            _put(tree, _flax_parts(".".join(mods)), leaf, v)
     return tree

@@ -1,3 +1,5 @@
-from .codecs import ESC, ESCModule, make_model
+from .codecs import (ESC, Codec, ESCModule, RVQCodecs, RVQModule, make_model,
+                     model_dict)
 
-__all__ = ["ESC", "ESCModule", "make_model"]
+__all__ = ["Codec", "ESC", "ESCModule", "RVQCodecs", "RVQModule",
+           "make_model", "model_dict"]

@@ -1,25 +1,33 @@
-"""The ESC codec: ``ESCModule`` (an ``nn.Module``) and the ``ESC`` facade.
+"""The codecs: ``ESCModule`` and ``RVQModule`` (``nn.Module`` s) behind the
+``ESC`` and ``RVQCodecs`` facades.
 
-Port of ``esc_tpu/models/codecs.py`` for ESC (``csvq+swinT``)
-(reference: esc/models/codecs.py:9-94):
+Port of ``esc_tpu/models/codecs.py`` (reference: esc/models/codecs.py):
+ESC (cross-scale product VQ) and the ablation codecs' bottleneck
+product-residual VQ, each on the Swin transformer or the convolution
+backbone, as the four names of :data:`model_dict`:
 
-    model = ESC(**config, device="cuda")     # seeded random init
+    model = make_model(config, "rvq+conv", device="cuda")  # seeded init
     codes, feat_shape = model.encode(x, num_streams=6)
     recon = model.decode(codes, feat_shape)
     out = model(x, num_streams=6)            # the eval forward's dict
 
-``ESCModule.forward`` is the full forward; in training mode
+The modules' ``forward`` is the full forward; in training mode
 (``module.train()``) it runs the kernels' plain versions and returns the
-straight-through losses, as the JAX package trains.
+straight-through losses, as the JAX package trains. The convolution
+backbone does not train, as in the JAX package (see
+:func:`esc_tpu_torch.modules.convolution.refuse_training`).
 
 ``dtype=torch.bfloat16`` is the bf16 serving mode (``esc_tpu/models/
 codecs.py:304-339``): parameters stay float32; the Swin blocks' Linear
 layers (attention qkv and proj, the MLP) run in bf16 with fp32
 accumulation, as the JAX package's ``nn.Dense(dtype=bf16)`` layers do; the
 attention kernel takes the bf16 qkv and returns fp32 (rounded back to bf16
-before ``proj``); LayerNorm, the patch layers, the VQ distances and the
-STFT / ISTFT stay float32. ``encode_chunked`` / ``decode_chunked`` serve
-long files in constant memory.
+before ``proj``); the convolution backbone's convolutions run in bf16 and
+their outputs widen to fp32 before BatchNorm, as the JAX package's
+``nn.Conv(dtype=bf16)`` ahead of a float32 BatchNorm; LayerNorm, the patch
+layers, the VQ distances and the STFT / ISTFT stay float32.
+``encode_chunked`` / ``decode_chunked`` serve long files in constant
+memory.
 
 Parameter names are the reference's torch keys, so one state dict serves
 weights carried from the JAX package (:func:`esc_tpu_torch.convert.
@@ -37,17 +45,20 @@ import torch.nn as nn
 
 from ..device import resolve_device
 from ..io import esc_pad_length
+from ..modules.convolution import Convolution2D, refuse_training
 from ..modules.transformer import FeedForward, WindowAttention
-from ..modules.vq import Codebook, ProductVectorQuantize
+from ..modules.vq import (Codebook, ProductResidualVectorQuantize,
+                          ProductVectorQuantize)
 from ..ops.stft import audio_reconstruct, spec_transform
-from .base import Encoder, max_bps
+from .base import Decoder, Encoder, max_bps
 from .csrvq import CrossScaleRVQDecoder
 
-__all__ = ["ESCModule", "ESC", "make_model"]
+__all__ = ["ESCModule", "RVQModule", "Codec", "ESC", "RVQCodecs",
+           "model_dict", "make_model"]
 
 
 class ESCModule(nn.Module):
-    """Efficient Speech Codec, transformer backbone."""
+    """Efficient Speech Codec: product VQs at every decoder scale."""
 
     def __init__(self, in_dim: int = 2, in_freq: int = 192,
                  h_dims: Sequence[int] = (45, 72, 96, 144, 192, 384),
@@ -58,12 +69,10 @@ class ESCModule(nn.Module):
                  mlp_ratio: float = 4.0, overlap: int = 2,
                  group_size: int = 3, codebook_size: int = 1024,
                  codebook_dims: Sequence[int] = (8, 8, 8, 8, 8, 8),
-                 l2norm: bool = True, backbone: str = "transformer"):
+                 l2norm: bool = True, backbone: str = "transformer",
+                 kernel_size: Sequence[int] = (5, 2), conv_depth: int = 1):
         super().__init__()
-        if backbone != "transformer":
-            raise NotImplementedError(
-                f"backbone {backbone!r}: the port runs the transformer "
-                "backbone only")
+        self.backbone = backbone
         self.in_freq, self.win_len, self.hop_len, self.sr = (
             in_freq, win_len, hop_len, sr)
         self.patch_size = tuple(patch_size)
@@ -81,17 +90,21 @@ class ESCModule(nn.Module):
                 overlap, group_size, codebook_dims[i], codebook_size, l2norm)
             for i in range(max_streams)])
         self.encoder = Encoder(in_dim, h, patch_size, swin_heads, swin_depth,
-                               window_size, mlp_ratio)
+                               window_size, mlp_ratio, backbone, kernel_size,
+                               conv_depth)
         self.decoder = CrossScaleRVQDecoder(in_freq, in_dim, dec_h,
                                             patch_size, list(swin_heads)[::-1],
                                             swin_depth, window_size,
-                                            mlp_ratio)
+                                            mlp_ratio, backbone, kernel_size,
+                                            conv_depth)
 
     def forward(self, x: torch.Tensor, num_streams: int = 6,
                 freeze_codebook: bool = False) -> dict:
         """Full forward (esc/models/codecs.py:30-66): the reference output
         dict with per-sample ``(B,)`` losses. ``freeze_codebook`` (the
         pretraining stage) runs every scale with the quantizers bypassed."""
+        if self.training and self.backbone == "convolution":
+            refuse_training()
         if freeze_codebook:
             num_streams = self.max_streams
         x_feat = spec_transform(x, self.in_freq, self.win_len, self.hop_len,
@@ -122,6 +135,79 @@ class ESCModule(nn.Module):
                                  self.hop_len, self.sr)
 
 
+class RVQModule(nn.Module):
+    """The RVQ ablation codec (esc/models/codecs.py:96-181): the encoder,
+    one product-residual VQ at its bottom, and the plain mirror decoder."""
+
+    def __init__(self, in_dim: int = 2, in_freq: int = 192,
+                 h_dims: Sequence[int] = (45, 72, 96, 144, 192, 384),
+                 max_streams: int = 6, backbone: str = "transformer",
+                 kernel_size: Sequence[int] = (5, 2), conv_depth: int = 1,
+                 patch_size: Sequence[int] = (3, 2),
+                 swin_heads: Sequence[int] = (3, 6, 12, 24, 24),
+                 swin_depth: int = 2, window_size: int = 4,
+                 mlp_ratio: float = 4.0, overlap: int = 2,
+                 num_rvqs: int = 6, group_size: int = 3,
+                 codebook_dim: int = 8, codebook_size: int = 1024,
+                 l2norm: bool = True, win_len: int = 20, hop_len: int = 5,
+                 sr: int = 16000):
+        super().__init__()
+        self.backbone = backbone
+        self.in_freq, self.win_len, self.hop_len, self.sr = (
+            in_freq, win_len, hop_len, sr)
+        self.patch_size = tuple(patch_size)
+        self.max_streams, self.overlap = max_streams, overlap
+        self.window_size = window_size
+        self.group_size, self.codebook_size = group_size, codebook_size
+        h = list(h_dims)
+        dec_h = h[::-1]
+        H = in_freq // patch_size[0]
+        self.quantizers = ProductResidualVectorQuantize(
+            dec_h[0], H // 2 ** (max_streams - 1), overlap, group_size,
+            num_rvqs, codebook_dim, codebook_size, l2norm)
+        self.encoder = Encoder(in_dim, h, patch_size, swin_heads, swin_depth,
+                               window_size, mlp_ratio, backbone, kernel_size,
+                               conv_depth)
+        self.decoder = Decoder(in_freq, in_dim, dec_h, patch_size,
+                               list(swin_heads)[::-1], swin_depth,
+                               window_size, mlp_ratio, backbone, kernel_size,
+                               conv_depth)
+
+    def forward(self, x: torch.Tensor, num_streams: int = 6,
+                freeze_codebook: bool = False) -> dict:
+        """Full forward (esc/models/codecs.py:123-150), the output dict of
+        :meth:`ESCModule.forward`. At inference every residual stage adds
+        to the latent whatever ``num_streams`` is, as in the JAX package;
+        in training the stages past it are masked."""
+        if self.training and self.backbone == "convolution":
+            refuse_training()
+        x_feat = spec_transform(x, self.in_freq, self.win_len, self.hop_len,
+                                self.sr)
+        enc_hs, feat_shape = self.encoder(x_feat)
+        out = self.quantizers(enc_hs[-1], num_streams,
+                              freeze_vq=freeze_codebook)
+        recon_feat = self.decoder(out["z_q"], feat_shape)
+        recon_x = audio_reconstruct(recon_feat, self.in_freq, self.win_len,
+                                    self.hop_len, self.sr)
+        return {"cm_loss": out["cm_loss"], "cb_loss": out["cb_loss"],
+                "raw_audio": x, "recon_audio": recon_x, "raw_feat": x_feat,
+                "recon_feat": recon_feat, "codes": out["codes"]}
+
+    def encode(self, x: torch.Tensor, num_streams: int) -> torch.Tensor:
+        """Waveform ``(B, L)`` -> codes ``(B, num_streams, groups, T)``."""
+        feat = spec_transform(x, self.in_freq, self.win_len, self.hop_len,
+                              self.sr)
+        enc_hs, _ = self.encoder(feat)
+        return self.quantizers.encode(enc_hs[-1], num_streams)
+
+    def decode(self, codes: torch.Tensor, feat_shape: Tuple[int, int]
+               ) -> torch.Tensor:
+        """Codes -> waveform ``(B, (T-1)*hop)``."""
+        z_q = self.quantizers.decode(codes, self.decoder.latent_dims)
+        return audio_reconstruct(self.decoder(z_q, feat_shape), self.in_freq,
+                                 self.win_len, self.hop_len, self.sr)
+
+
 @torch.no_grad()
 def _init_parameters(module: nn.Module, generator: torch.Generator) -> None:
     """Seeded random init, drawn on the CPU so a seed gives the same
@@ -132,7 +218,7 @@ def _init_parameters(module: nn.Module, generator: torch.Generator) -> None:
         return torch.randn(t.shape, generator=generator, dtype=torch.float32)
 
     for m in module.modules():
-        if isinstance(m, (nn.Linear, nn.Conv2d)):
+        if isinstance(m, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)):
             fan_in = m.weight[0].numel()
             m.weight.copy_(randn(m.weight) / math.sqrt(fan_in))
             if m.bias is not None:
@@ -148,15 +234,18 @@ def _init_parameters(module: nn.Module, generator: torch.Generator) -> None:
             w.copy_(randn(w) * math.sqrt(2.0 / w.shape[1]))
 
 
-class ESC:
-    """Stateful facade around :class:`ESCModule`: owns the device and the
-    weights and takes numpy arrays or tensors.
+class Codec:
+    """Stateful facade around a codec module (``module_cls``): owns the
+    device and the weights and takes numpy arrays or tensors.
 
     ``plain_ops=True`` runs the plain PyTorch versions of the kernels on
     any device, as the yardstick the kernels are held to. ``dtype`` is the
-    compute dtype of the Swin blocks' Linear layers (float32, or bfloat16
-    for the bf16 serving mode; see the module docstring).
+    compute dtype of the Swin blocks' Linear layers and of the convolution
+    backbone's convolutions (float32, or bfloat16 for the bf16 serving
+    mode; see the module docstring).
     """
+
+    module_cls: type = None           # the subclass's codec module
 
     def __init__(self, seed: int = 0,
                  device: Optional[Union[str, torch.device]] = None,
@@ -165,12 +254,12 @@ class ESC:
         self.config = dict(config)
         self.device = resolve_device(device)
         self.dtype = _compute_dtype(dtype)
-        self.module = ESCModule(**config)
+        self.module = self.module_cls(**config)
         _init_parameters(self.module, torch.Generator().manual_seed(seed))
         for m in self.module.modules():
             if isinstance(m, (WindowAttention, Codebook)):
                 m.plain_ops = plain_ops
-            if isinstance(m, (WindowAttention, FeedForward)):
+            if isinstance(m, (WindowAttention, FeedForward, Convolution2D)):
                 m.compute_dtype = self.dtype
         self.module.to(self.device).eval()
 
@@ -205,11 +294,13 @@ class ESC:
         return int(self.module.hop_len * self.module.sr * 1e-3)
 
     def feat_shape(self, audio_len: int) -> Tuple[int, int]:
-        """Bottom-scale token grid ``(H, W)`` for an input length."""
+        """Bottom-scale grid ``(H, W)`` for an input length: the Swin
+        layers halve H rounding up, the convolutions rounding down."""
         patch = self.module.patch_size
         H = self.module.in_freq // patch[0]
+        up = self.module.backbone == "transformer"
         for _ in range(self.max_streams - 1):
-            H = (H + 1) // 2
+            H = (H + 1) // 2 if up else H // 2
         return H, (audio_len // self._hop() + 1) // patch[1]
 
     def pad_length(self, n: int) -> int:
@@ -267,8 +358,16 @@ class ESC:
 
     def print_codec(self) -> None:
         """Each scale's quantizer geometry, from the bottom up
-        (esc/models/base.py:86-107)."""
+        (esc/models/base.py:86-107); the bottom one of an RVQ codec."""
         m = self.module
+        if isinstance(m, RVQModule):
+            q = m.quantizers
+            print("Codec Visualization [only at bottom]")
+            print("     Freq dim:                ", q.in_freq)
+            print("     Channel(hidden) dim:     ", q.fix_dim // q.in_freq)
+            print("     Reshaped hidden dim:     ", q.fix_dim)
+            print("     Codebook dim:            ", q.codebook_dim)
+            return
         freqs = [q.in_freq for q in m.quantizers]
         dims = [q.fix_dim // q.in_freq for q in m.quantizers]
         print("Codec Visualization [from bottom to top]: ")
@@ -396,29 +495,58 @@ def _compute_dtype(dtype: Union[str, torch.dtype]) -> torch.dtype:
     return dt
 
 
+class ESC(Codec):
+    """Efficient Speech Codec (reference ESC, esc/models/codecs.py:9)."""
+
+    module_cls = ESCModule
+
+
+class RVQCodecs(Codec):
+    """The RVQ ablation codec (reference RVQCodecs,
+    esc/models/codecs.py:96)."""
+
+    module_cls = RVQModule
+
+
+model_dict = {
+    "csvq+conv": ESC,
+    "csvq+swinT": ESC,
+    "rvq+conv": RVQCodecs,
+    "rvq+swinT": RVQCodecs,
+}
+
+
 def make_model(model_config, model_name: str = "csvq+swinT", seed: int = 0,
                device: Optional[Union[str, torch.device]] = None,
                plain_ops: bool = False,
-               dtype: Union[str, torch.dtype] = torch.float32) -> ESC:
-    """Build a codec from a config dict (esc/models/codecs.py:190). The port
-    serves ``csvq+swinT``; the other reference names raise."""
-    if model_name != "csvq+swinT":
-        raise NotImplementedError(
-            f"{model_name!r}: the port serves 'csvq+swinT' only")
+               dtype: Union[str, torch.dtype] = torch.float32) -> Codec:
+    """Build a codec from a config dict (esc/models/codecs.py:190); an
+    unknown ``model_name`` raises ``ValueError``."""
+    if model_name not in model_dict:
+        raise ValueError(f"{model_name!r} is not valid within "
+                         f"[{', '.join(model_dict)}]")
     cfg = model_config if isinstance(model_config, dict) \
         else vars(model_config)
-    cfg = _normalize_config(dict(cfg))
-    return ESC(seed=seed, device=device, plain_ops=plain_ops, dtype=dtype,
-               **cfg)
+    cfg = _normalize_config(dict(cfg), model_name)
+    return model_dict[model_name](seed=seed, device=device,
+                                  plain_ops=plain_ops, dtype=dtype, **cfg)
 
 
-def _normalize_config(cfg: dict) -> dict:
-    """Fix the reference configs' quirks for ``csvq`` models: a scalar
-    ``codebook_dim`` becomes per-scale ``codebook_dims``; ``num_rvqs`` is
-    dropped (``esc_tpu/models/codecs.py:_normalize_config``)."""
-    if "codebook_dim" in cfg and "codebook_dims" not in cfg:
-        d = cfg.pop("codebook_dim")
-        n = cfg.get("max_streams", 6)
-        cfg["codebook_dims"] = [d] * n if isinstance(d, int) else list(d)
-    cfg.pop("num_rvqs", None)
+def _normalize_config(cfg: dict, model_name: str) -> dict:
+    """Fix the reference configs' quirks (``esc_tpu/models/codecs.py:
+    _normalize_config``): ``csvq`` models take per-scale
+    ``codebook_dims`` (a scalar ``codebook_dim`` repeated) and no
+    ``num_rvqs``; ``rvq`` models take one ``codebook_dim`` (the first of
+    ``codebook_dims``)."""
+    if model_name.startswith("csvq"):
+        if "codebook_dim" in cfg and "codebook_dims" not in cfg:
+            d = cfg.pop("codebook_dim")
+            n = cfg.get("max_streams", 6)
+            cfg["codebook_dims"] = [d] * n if isinstance(d, int) else list(d)
+        cfg.pop("num_rvqs", None)
+    elif "codebook_dims" in cfg and "codebook_dim" not in cfg:
+        d = cfg.pop("codebook_dims")
+        cfg["codebook_dim"] = d[0] if isinstance(d, (list, tuple)) else d
+    elif isinstance(cfg.get("codebook_dim"), (list, tuple)):
+        cfg["codebook_dim"] = cfg["codebook_dim"][0]
     return cfg

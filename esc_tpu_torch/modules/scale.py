@@ -42,22 +42,27 @@ def pixel_shuffle(x: torch.Tensor, factor: Sequence[int] = (2, 1)
 
 class PatchEmbed(nn.Module):
     """Strided-conv patchify + token LayerNorm: ``(B, 2, F, T)`` ->
-    ``(B, H*W, C)``."""
+    ``(B, H*W, C)``; for the convolution backbone the conv's map
+    ``(B, C, H, W)``, with no LayerNorm."""
 
     def __init__(self, in_chans: int, patch_size: Sequence[int],
-                 embed_dim: int):
+                 embed_dim: int, backbone: str = "transformer"):
         super().__init__()
         p = tuple(patch_size)
         self.proj = nn.Conv2d(in_chans, embed_dim, p, p)
-        self.norm = nn.LayerNorm(embed_dim, eps=LN_EPS)
+        self.norm = (nn.LayerNorm(embed_dim, eps=LN_EPS)
+                     if backbone == "transformer" else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.norm(self.proj(x).flatten(2).transpose(1, 2))
+        x = self.proj(x)
+        if self.norm is None:
+            return x
+        return self.norm(x.flatten(2).transpose(1, 2))
 
 
 class PatchDeEmbed(nn.Module):
-    """conv 5x5 -> pixel shuffle -> conv 3x3: ``(B, H*W, C)`` ->
-    ``(B, 2, F, T)``."""
+    """conv 5x5 -> pixel shuffle -> conv 3x3: ``(B, H*W, C)`` tokens, or
+    a map ``(B, C, H, W)`` of the convolution backbone, -> ``(B, 2, F, T)``."""
 
     def __init__(self, freq: int, in_chans: int, patch_size: Sequence[int],
                  embed_dim: int):
@@ -69,8 +74,9 @@ class PatchDeEmbed(nn.Module):
         self.de_proj2 = nn.Conv2d(embed_dim, in_chans, 3, 1, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        B, L, C = x.shape
-        x = x.transpose(1, 2).reshape(B, C, self.H, L // self.H)
+        if x.dim() == 3:
+            B, L, C = x.shape
+            x = x.transpose(1, 2).reshape(B, C, self.H, L // self.H)
         x = self.de_proj1(x)
         x = pixel_shuffle(x.permute(0, 2, 3, 1), self.patch_size)
         return self.de_proj2(x.permute(0, 3, 1, 2))

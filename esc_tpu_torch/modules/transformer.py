@@ -25,6 +25,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.kernels import window_attention, window_attention_plain
+from ..ops.stft import frozen
 from .scale import LN_EPS, PatchMerge, PatchSplit
 
 __all__ = ["swin_attention_mask", "relative_position_index",
@@ -48,14 +49,14 @@ def swin_attention_mask(H: int, W: int, window: int, shift: int
     m = img.reshape(Hp // window, window, Wp // window, window)
     m = m.transpose(0, 2, 1, 3).reshape(-1, window * window)
     diff = m[:, None, :] - m[:, :, None]
-    return np.where(diff != 0, -100.0, 0.0).astype(np.float32)
+    return frozen(np.where(diff != 0, -100.0, 0.0).astype(np.float32))
 
 
 @functools.lru_cache(maxsize=64)
 def _mask_on(H: int, W: int, window: int, shift: int,
              device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(swin_attention_mask(H, W, window, shift)).to(
-        device)
+    return torch.tensor(swin_attention_mask(H, W, window, shift),
+                        device=device)
 
 
 @functools.lru_cache(maxsize=16)
@@ -68,7 +69,7 @@ def relative_position_index(wh: int, ww: int) -> np.ndarray:
     rel[:, :, 0] += wh - 1
     rel[:, :, 1] += ww - 1
     rel[:, :, 0] *= 2 * ww - 1
-    return rel.sum(-1)
+    return frozen(rel.sum(-1))
 
 
 def _linear(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype
@@ -130,8 +131,7 @@ class WindowAttention(nn.Module):
             torch.zeros((2 * window_size - 1) ** 2, num_heads))
         self.register_buffer(
             "relative_position_index",
-            torch.from_numpy(relative_position_index(window_size,
-                                                     window_size)),
+            torch.tensor(relative_position_index(window_size, window_size)),
             persistent=False)
         self.qkv = nn.Linear(dim, 3 * dim, bias=True)
         self.proj = nn.Linear(dim, dim)

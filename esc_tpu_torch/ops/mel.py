@@ -15,7 +15,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .stft import _dft_matrices, _on_device
+from .stft import _dft_matrices, _on_device, frozen
 
 __all__ = ["mel_filterbank", "mel_spectrogram", "reflect_index",
            "MEL_WINDOWS", "MEL_BINS"]
@@ -47,7 +47,7 @@ def mel_filterbank(n_freqs: int, n_mels: int, sample_rate: int = 16000,
     slopes = f_pts[None, :] - all_freqs[:, None]
     down = -slopes[:, :-2] / f_diff[:-1]
     up = slopes[:, 2:] / f_diff[1:]
-    return np.maximum(0.0, np.minimum(down, up)).astype(np.float32)
+    return frozen(np.maximum(0.0, np.minimum(down, up)).astype(np.float32))
 
 
 def reflect_index(L: int, pad: int, n: torch.Tensor) -> torch.Tensor:

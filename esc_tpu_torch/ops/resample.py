@@ -23,6 +23,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .stft import frozen
+
 __all__ = ["resample", "resample_kernel", "resample_julius",
            "julius_kernel"]
 
@@ -40,7 +42,7 @@ def resample_kernel(up: int, down: int, zeros: int = 24,
     h = 2.0 * fc * np.sinc(2.0 * fc * t)
     h *= np.hanning(2 * half + 1 + 2)[1:-1]
     h *= up / np.sum(h)
-    return h.astype(np.float32)
+    return frozen(h.astype(np.float32))
 
 
 @functools.lru_cache(maxsize=None)
@@ -59,13 +61,14 @@ def julius_kernel(old_sr: int, new_sr: int, zeros: int = 24,
         window = np.cos(t / zeros / 2) ** 2
         rows.append(np.sinc(t / np.pi) * window)
     scale = sr / old_sr
-    return (np.stack(rows) * scale).astype(np.float32)
+    return frozen((np.stack(rows) * scale).astype(np.float32))
 
 
 @functools.lru_cache(maxsize=64)
 def _taps(make, args: tuple, device: torch.device) -> torch.Tensor:
-    """``make(*args)`` as a float32 tensor kept on ``device``."""
-    return torch.from_numpy(make(*args)).to(device)
+    """``make(*args)`` as a float32 tensor kept on ``device``, a copy that
+    shares no memory with the cached numpy array."""
+    return torch.tensor(make(*args), device=device)
 
 
 def _reduced(orig_sr: int, new_sr: int):

@@ -21,6 +21,14 @@ import torch.nn.functional as F
 __all__ = ["stft", "istft", "spec_transform", "audio_reconstruct"]
 
 
+def frozen(*arrays: np.ndarray):
+    """Mark cached numpy constants read-only: every caller of a cached
+    function shares its arrays, so a write by one would reach all."""
+    for a in arrays:
+        a.setflags(write=False)
+    return arrays if len(arrays) > 1 else arrays[0]
+
+
 def _padded_window(n_fft: int, win_length: int) -> np.ndarray:
     """Periodic Hann window zero-padded symmetrically to n_fft (float64)."""
     w = 0.5 - 0.5 * np.cos(2.0 * np.pi * np.arange(win_length) / win_length)
@@ -45,8 +53,8 @@ def _dft_matrices(n_fft: int, win_length: int):
     if n_fft % 2 == 0:
         c[-1, 0] = 1.0
     inv = np.concatenate([c * cos, -c * sin], axis=0) / n_fft * w[None, :]
-    return (fwd.astype(np.float32), inv.astype(np.float32),
-            (w * w).astype(np.float32))
+    return frozen(fwd.astype(np.float32), inv.astype(np.float32),
+                  (w * w).astype(np.float32))
 
 
 @functools.lru_cache(maxsize=32)
@@ -56,7 +64,7 @@ def _ola_envelope(n_fft: int, win_length: int, hop: int, T: int) -> np.ndarray:
     env = np.zeros((T - 1) * hop + n_fft, dtype=np.float64)
     for t in range(T):
         env[t * hop:t * hop + n_fft] += wsq
-    return np.where(env > 1e-11, env, 1.0).astype(np.float32)
+    return frozen(np.where(env > 1e-11, env, 1.0).astype(np.float32))
 
 
 @functools.lru_cache(maxsize=64)
@@ -64,9 +72,10 @@ def _on_device(make, args: tuple, index: int, device: torch.device
                ) -> torch.Tensor:
     """``make(*args)[index]`` (or ``make(*args)`` where ``index`` is -1), a
     numpy constant, as a tensor kept on ``device``: it is uploaded once,
-    not at every call."""
+    not at every call. On the CPU too the tensor is a copy, so that it
+    shares no memory with the cached numpy array."""
     a = make(*args)
-    return torch.from_numpy(a if index < 0 else a[index]).to(device)
+    return torch.tensor(a if index < 0 else a[index], device=device)
 
 
 def stft(x: torch.Tensor, n_fft: int = 382, win_length: int = 320,

@@ -29,7 +29,7 @@ def eval_epoch(model, eval_loader, metric_funcs: Dict,
                e_counter: EntropyCounter, bps_per_stream: float = 1.5,
                num_streams: Optional[int] = None,
                verbose: bool = True) -> Dict[str, list]:
-    """Score ``model`` (an :class:`esc_tpu_torch.models.ESC`) over
+    """Score ``model`` (an :class:`esc_tpu_torch.models.Codec`) over
     ``eval_loader``: ``{metric: [mean per bitrate], "utilization": [...]}``,
     the reference's ``all_perf`` layout. ``num_streams=None`` sweeps
     1..max_streams (1.5 to 9 kbps)."""

@@ -46,6 +46,7 @@ from ..convert import from_jax_params, to_jax_params
 from ..device import resolve_device
 from ..metrics import PESQ, SISDR, EntropyCounter, MelSpectrogramDistance
 from ..models import make_model
+from ..modules.convolution import refuse_training
 from ..modules.losses import complex_stft_loss, mel_spectrogram_loss
 from ..parallel import DataParallel, process_is_main
 from ..utils.config import write_yaml
@@ -107,6 +108,8 @@ class Trainer:
         cfg, args = self.config, self.args
         model = make_model(cfg["model"], cfg.get("model_name", "csvq+swinT"),
                            seed=getattr(args, "seed", 53), device=self.device)
+        if model.module.backbone == "convolution":
+            refuse_training()       # before any data is read or file written
         self.metrics = {"PESQ": PESQ(), "MelDistance": MelSpectrogramDistance(),
                         "SISDR": SISDR()}
         mcfg = model.config

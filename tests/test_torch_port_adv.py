@@ -26,6 +26,7 @@ from esc_tpu_torch.models.discriminator import (Discriminator, WNConv,
                                                 init_discriminator)
 from esc_tpu_torch.modules.gan_loss import discriminator_loss, generator_loss
 from esc_tpu_torch.ops import resample as port_resample
+from tests.test_torch_port_conv import one_torch_thread  # noqa: F401
 
 B, L = 2, 4000
 SMALL = dict(periods=(2, 3), fft_sizes=(512, 256), sample_rate=16000)

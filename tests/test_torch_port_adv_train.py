@@ -31,6 +31,7 @@ from esc_tpu_torch.io import save_wav
 from esc_tpu_torch.models.discriminator import init_discriminator
 from esc_tpu_torch.train import trainer_adv as port_trainer_adv
 from tests.test_torch_port_adv import _flat, _pair
+from tests.test_torch_port_conv import one_torch_thread  # noqa: F401
 
 # the verify skill's tiny ESC and the small discriminator with two bands
 TINY = dict(

@@ -10,10 +10,11 @@ import numpy as np
 import pytest
 import torch
 
-from esc_tpu_torch.models import ESC
+from esc_tpu_torch.models import ESC, make_model
 from esc_tpu_torch.ops.kernels import (codebook_argmin, codebook_argmin_plain,
                                        window_attention,
                                        window_attention_plain)
+from esc_tpu_torch.ops.kernels.codebook_argmin import launch_plan
 
 pytestmark = pytest.mark.cuda
 
@@ -76,6 +77,22 @@ def test_argmin_kernel_shapes(rng, cuda, N, K, d):
     ours = codebook_argmin(z, cb)
     plain = codebook_argmin_plain(z, cb)
     assert bool(((ours == plain) | _near_tie(z, cb)).all())
+
+
+@pytest.mark.parametrize("N", [600, 599, 661, 1201, 133])
+def test_argmin_kernel_at_the_rvq_bottleneck(rng, cuda, N):
+    """The RVQ ablations' bottleneck codebooks, 1024 x 8: 600 rows (4 clips
+    of 3 s), and row counts that leave the plan's last block part empty."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    if N != 600:
+        assert N % launch_plan(N, 1024, 8, sms).rows != 0
+    z, cb = _normed(rng, (N, 8), cuda), _normed(rng, (1024, 8), cuda)
+    n = codebook_argmin.launches
+    ours = codebook_argmin(z, cb)
+    torch.cuda.synchronize()
+    assert codebook_argmin.launches == n + 1
+    assert bool(((ours == codebook_argmin_plain(z, cb))
+                 | _near_tie(z, cb)).all())
 
 
 @pytest.mark.parametrize("K,d", [(7, 6), (1024, 8), (129, 9)])
@@ -253,6 +270,34 @@ def test_model_on_kernels_matches_plain_model(rng, cuda):
     assert codebook_argmin.launches > before[0]
     assert window_attention.launches > before[1]
     pcodes, _ = plain.encode(x, num_streams=6)
+    assert float((pcodes != codes).float().mean()) <= 2e-3
+    torch.testing.assert_close(plain.decode(codes, fs), recon, atol=5e-4,
+                               rtol=0)
+
+
+RVQ_SMALL = {k: v for k, v in SMALL.items() if k != "codebook_dims"}
+ABLATION_SMALL = {
+    "rvq+swinT": dict(RVQ_SMALL, codebook_dim=8, num_rvqs=6),
+    "csvq+conv": dict(SMALL, backbone="convolution", kernel_size=[5, 2],
+                      conv_depth=1),
+    "rvq+conv": dict(RVQ_SMALL, backbone="convolution", kernel_size=[5, 2],
+                     conv_depth=1, codebook_dim=8, num_rvqs=6),
+}
+
+
+@pytest.mark.parametrize("name", list(ABLATION_SMALL))
+def test_ablation_models_on_kernels_match_plain(rng, cuda, name):
+    x = (0.1 * rng.standard_normal((2, 15920))).astype(np.float32)
+    model = make_model(ABLATION_SMALL[name], name, seed=2, device=cuda)
+    plain = make_model(ABLATION_SMALL[name], name, seed=2, device=cuda,
+                       plain_ops=True)
+    before = (codebook_argmin.launches, window_attention.launches)
+    codes, fs, recon = model.roundtrip(x, num_streams=3)
+    torch.cuda.synchronize()
+    assert codebook_argmin.launches == before[0] + 9    # 3 streams x 3
+    assert (window_attention.launches > before[1]) == name.endswith("swinT")
+    pcodes, _ = plain.encode(x, num_streams=3)
+    assert codes.shape == pcodes.shape == (2, 3, 3, 50)
     assert float((pcodes != codes).float().mean()) <= 2e-3
     torch.testing.assert_close(plain.decode(codes, fs), recon, atol=5e-4,
                                rtol=0)

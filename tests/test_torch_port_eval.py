@@ -34,6 +34,7 @@ from esc_tpu_torch.io import save_wav
 from esc_tpu_torch.models import ESC
 from esc_tpu_torch.train.data import make_dataloader
 from esc_tpu_torch.train.evaluate import eval_epoch
+from tests.test_torch_port_conv import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 CONFIG = dict(

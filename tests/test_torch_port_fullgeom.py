@@ -16,6 +16,7 @@ import yaml
 from esc_tpu.models import ESC as JaxESC
 from esc_tpu_torch.convert import from_jax_params
 from esc_tpu_torch.models import make_model
+from tests.test_torch_port_conv import one_torch_thread  # noqa: F401
 
 L = 15920  # ~1 s -> T=200 frames, token grid (64, 100)
 

@@ -16,6 +16,7 @@ from esc_tpu.ops.pallas.vq_kernels import _jnp_argmin, codebook_argmin as jax_ar
 from esc_tpu_torch.ops.kernels import (codebook_argmin, codebook_argmin_plain,
                                        window_attention,
                                        window_attention_plain)
+from tests.test_torch_port_conv import one_torch_thread  # noqa: F401
 
 
 def _normed(a):

@@ -5,7 +5,9 @@ histogram and utilisation, STOI and PESQ.
 Inputs are made from numpy seeds and go through both packages on the CPU.
 Tolerances: float32 spectra and distances within rtol 1e-5 (two frameworks'
 float32 sums), histograms and utilisation exact, the numpy metrics within
-1e-5 (the port's copies run the same numpy code).
+1e-5 (the port's copies run the same numpy code). The mel spectra are also
+held, at the same tolerance, to a float64 numpy mel that shares no code
+with either package, so that a mismatch says which side moved.
 """
 
 import numpy as np
@@ -19,9 +21,36 @@ from esc_tpu.ops.mel import mel_spectrogram as jax_mel_spectrogram
 from esc_tpu_torch import metrics as pm
 from esc_tpu_torch.metrics_pesq import pesq_wb
 from esc_tpu_torch.metrics_stoi import stoi
+from esc_tpu_torch.modules import transformer as port_transformer
+from esc_tpu_torch.ops import mel as port_mel
+from esc_tpu_torch.ops import resample as port_resample
+from esc_tpu_torch.ops import stft as port_stft
 from esc_tpu_torch.ops.mel import MEL_BINS, MEL_WINDOWS, mel_spectrogram
+from tests.test_torch_port_conv import one_torch_thread  # noqa: F401
 
 SCALES = list(zip(MEL_WINDOWS, MEL_BINS))
+
+
+def _mel_float64(x, n_fft, n_mels, sr=16000):
+    """torchaudio's MelSpectrogram (power 1, HTK, no norm, reflect-centred
+    periodic Hann frames, hop n_fft // 4) in float64 numpy."""
+    hop = n_fft // 4
+    T = x.shape[-1] // hop + 1
+    xp = np.pad(x.astype(np.float64), ((0, 0), (n_fft // 2, n_fft // 2)),
+                mode="reflect")
+    idx = np.arange(T)[:, None] * hop + np.arange(n_fft)[None, :]
+    win = 0.5 - 0.5 * np.cos(2 * np.pi * np.arange(n_fft) / n_fft)
+    mag = np.abs(np.fft.rfft(xp[:, idx] * win, axis=-1))      # (B, T, F)
+
+    def hz_to_mel(f):
+        return 2595.0 * np.log10(1.0 + f / 700.0)
+    f_pts = 700.0 * (10 ** (np.linspace(0.0, hz_to_mel(sr / 2), n_mels + 2)
+                            / 2595.0) - 1.0)
+    slopes = f_pts[None, :] - np.linspace(0.0, sr / 2, n_fft // 2 + 1)[:,
+                                                                       None]
+    fb = np.maximum(0.0, np.minimum(-slopes[:, :-2] / np.diff(f_pts)[:-1],
+                                    slopes[:, 2:] / np.diff(f_pts)[1:]))
+    return np.transpose(mag @ fb, (0, 2, 1))
 
 
 def _speech_like(rng, n, f0=140.0):
@@ -47,10 +76,47 @@ def test_mel_spectrogram_matches_at_every_scale(audio, n_fft, n_mels):
     x, _ = audio
     ours = mel_spectrogram(torch.from_numpy(x), n_fft, n_mels).numpy()
     theirs = np.asarray(jax_mel_spectrogram(x, n_fft, n_mels))
-    assert ours.shape == theirs.shape == (2, n_mels, 12000 // (n_fft // 4)
-                                          + 1)
-    np.testing.assert_allclose(ours, theirs, rtol=1e-5,
-                               atol=1e-5 * np.abs(theirs).max())
+    truth = _mel_float64(x, n_fft, n_mels)
+    assert ours.shape == theirs.shape == truth.shape == (
+        2, n_mels, 12000 // (n_fft // 4) + 1)
+    atol = 1e-5 * np.abs(truth).max()
+    np.testing.assert_allclose(ours, truth, rtol=1e-5, atol=atol,
+                               err_msg="the port against float64")
+    np.testing.assert_allclose(
+        ours, theirs, rtol=1e-5, atol=1e-5 * np.abs(theirs).max(),
+        err_msg="the JAX package against float64: max abs error "
+                f"{np.abs(theirs - truth).max():.3g}")
+
+
+def test_cached_constants_are_read_only_and_not_shared():
+    """The numpy constants that the port caches (DFT matrices, windows'
+    overlap-add, mel filterbanks, the Swin mask and position index,
+    resampling kernels) are shared by every caller of their cached
+    function, so they are read-only; their tensors on a device are copies,
+    on the CPU too, so that no write through a tensor reaches the cache."""
+    arrays = [*port_stft._dft_matrices(32, 32),
+              port_stft._ola_envelope(382, 320, 80, 10),
+              port_mel.mel_filterbank(17, 5),
+              port_transformer.swin_attention_mask(8, 8, 4, 2),
+              port_transformer.relative_position_index(4, 4),
+              port_resample.resample_kernel(2, 3),
+              port_resample.julius_kernel(2, 3)]
+    for a in arrays:
+        assert not a.flags.writeable
+        with pytest.raises(ValueError):
+            a[(0,) * a.ndim] = 1
+    cpu = torch.device("cpu")
+    fwd = port_stft._on_device(port_stft._dft_matrices, (32, 32), 0, cpu)
+    fb = port_stft._on_device(port_mel.mel_filterbank, (17, 5, 16000), -1,
+                              cpu)
+    for t, a in ((fwd, arrays[0]), (fb, arrays[4])):
+        assert not np.shares_memory(t.numpy(), a)
+        np.testing.assert_array_equal(t.numpy(), a)
+    mask = port_transformer._mask_on(8, 8, 4, 2, cpu)
+    assert not np.shares_memory(mask.numpy(), arrays[5])
+    attn = port_transformer.WindowAttention(8, 4, 2)
+    assert not np.shares_memory(attn.relative_position_index.numpy(),
+                                arrays[6])
 
 
 def test_mel_spectrogram_folds_pads_longer_than_the_signal(rng):

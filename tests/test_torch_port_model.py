@@ -15,6 +15,7 @@ from esc_tpu.convert import flax_to_torch
 from esc_tpu.models import ESC as JaxESC
 from esc_tpu_torch.convert import from_jax_params
 from esc_tpu_torch.models import ESC, make_model
+from tests.test_torch_port_conv import one_torch_thread  # noqa: F401
 
 CONFIG = dict(
     backbone="transformer", in_dim=2, in_freq=192,
@@ -95,5 +96,5 @@ def test_make_model_normalizes_and_seeds():
     sa, sb, sc = a.state_dict(), b.state_dict(), c.state_dict()
     assert all(torch.equal(sa[k], sb[k]) for k in sa)
     assert not all(torch.equal(sa[k], sc[k]) for k in sa)
-    with pytest.raises(NotImplementedError):
-        make_model(cfg, model_name="rvq+swinT", device="cpu")
+    with pytest.raises(ValueError, match="not valid"):
+        make_model(cfg, model_name="rvq+mlp", device="cpu")

@@ -17,6 +17,7 @@ from esc_tpu_torch.convert import from_jax_params
 from esc_tpu_torch.modules import scale as pscale
 from esc_tpu_torch.modules import transformer as ptr
 from esc_tpu_torch.ops import stft as pstft
+from tests.test_torch_port_conv import one_torch_thread  # noqa: F401
 
 
 def _carry(module, params):

@@ -31,6 +31,7 @@ from esc_tpu_torch.parallel import DataParallel, process_is_main
 from esc_tpu_torch.train import data as data_mod
 from esc_tpu_torch.train import trainer as trainer_mod
 from esc_tpu_torch.utils.config import write_yaml
+from tests.test_torch_port_conv import one_torch_thread  # noqa: F401
 
 TINY = dict(
     backbone="transformer", in_dim=2, in_freq=192,

@@ -25,6 +25,7 @@ from esc_tpu_torch.convert import from_jax_params
 from esc_tpu_torch.io import load_wav, save_wav
 from esc_tpu_torch.models import ESC
 from esc_tpu_torch.serving import stream_map, stream_roundtrip
+from tests.test_torch_port_conv import one_torch_thread  # noqa: F401
 from tests.test_torch_port_io import jax_native  # noqa: F401  (fixture)
 
 ROOT = Path(__file__).resolve().parents[1]

@@ -32,6 +32,7 @@ from esc_tpu_torch.models import ESC
 from esc_tpu_torch.modules.losses import (GRAD_FLOOR, complex_stft_loss,
                                           mel_spectrogram_loss, power_law)
 from esc_tpu_torch.train.optim import SCHEDULES, AdamW, make_schedule
+from tests.test_torch_port_conv import one_torch_thread  # noqa: F401
 
 CONFIG = dict(
     backbone="transformer", in_dim=2, in_freq=192,

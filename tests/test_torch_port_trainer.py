@@ -22,6 +22,7 @@ from esc_tpu_torch.checkpoint import load_checkpoint
 from esc_tpu_torch.cli import train as train_cli
 from esc_tpu_torch.io import save_wav
 from esc_tpu_torch.train import trainer as port_trainer
+from tests.test_torch_port_conv import one_torch_thread  # noqa: F401
 
 TINY = dict(
     backbone="transformer", in_dim=2, in_freq=192,
