@@ -10,7 +10,8 @@ Phases, each ending with one line that carries its seconds:
             process per source; the host compiler builds the range coder
 2. kernels  each CUDA kernel against its plain PyTorch version, on the
             card, at the shapes ESC-Base serving gives it (4 clips of 3 s;
-            the 25 s file of phase 3c whole and in its chunks) and at widths
+            the 25 s file of phase 3c whole and in its chunks; the DAC's
+            1024 x 8 codebooks of phase 11) and at widths
             beyond them (heads split into groups, codebooks in K-tiles);
             call time (CUDA events around the Python calls,
             host work included) of the kernel, its plain version and one
@@ -76,17 +77,37 @@ Phases, each ending with one line that carries its seconds:
             kernel launch; both kernels in the evaluation), and the train
             CLI's refusal of the conv backbone; a rvq+conv .ckpt written
             with its BatchNorm statistics and read back, the same codes
+10. multicard ESC-Base as published (configs/9kbps_esc_base.yaml, random
+            weights from seed 0) over every visible card (Replicas):
+            encode_chunked_dp / decode_chunked_dp of a 25 s file in 10 s
+            chunks with 1 s margins, launches as predicted, codes against
+            the same replicas on the plain versions, the same codes decoded
+            by both; python -m esc_tpu_torch.cli.test --data_parallel on
+            phase 5's clips and model against phase 5's perf_stats.json;
+            ms per audio second, serial against the replicas
+11. dac      the DAC of configs/dac/16khz_dns_9k.yml as published (74.34M
+            parameters, random weights from seed 0): the eval forward of 4
+            clips of 3 s and compress of a 10 s wav in 1 s windows, with
+            the argmin's launches predicted, against the plain argmin;
+            python -m esc_tpu_torch.baselines.dac encode and decode as
+            subprocesses; DACTrainer with the config's discriminator for 4
+            steps at batch 2 and a validation (finite losses, checkpoints
+            that load, no kernel in a step, the argmin in the validation),
+            steps per second by StepTimer tic/toc, peak memory; one trace()
+            of a DAC roundtrip
 4. profile  device time by kernel over one roundtrip, one training step and
             one adversarial step, each half of it apart (torch.profiler),
             the MRD spectrograms' device time; then each kernel's, its plain
             version's and the library call's device time at the shapes of
-            phase 2 and at those of the ablations' roundtrips
+            phase 2, at those of the ablations' roundtrips and at those of
+            the DAC's 10 s compress
 
-Phases 5-9 run before phase 4: a profiler session slows the host's later
-launches in the same process. Each path of phases 3-7 and 9 is driven
+Phases 5-11 run before phase 4: a profiler session slows the host's later
+launches in the same process. Each path of phases 3-7 and 9-11 is driven
 with the launch counts set to 0 just before it and read just after; every
-kernel of the path must have run in it (in phase 6's, 7's and 9's training
-steps, none may; in a conv codec's roundtrip, the attention may not).
+kernel of the path must have run in it (in the training steps of phases
+6, 7, 9 and 11, none may; in a conv codec's roundtrip and in the DAC, the
+attention may not).
 
 The second-to-last line is the kernels' JSON summary, the last
 {"ok": true, "device": {...}}. Any failed check raises: the script then
@@ -186,6 +207,16 @@ ABLATION_YAMLS = {name: ROOT / "configs" / "ablations" /
                   for name in ("rvq+swinT", "csvq+conv", "rvq+conv")}
 ABLATION_CLI_SECONDS = 10
 ABLATION_STEPS = 10
+# phase 10: ESC-Base as published, a 25 s file in 10 s chunks with 1 s
+# margins over every visible card
+DP_SECONDS, DP_CHUNK, DP_MARGIN = 25, 10.0, 1.0
+# phase 11: the DAC as published; its forward on 4 clips of 3 s, compress
+# of a 10 s file in 1 s windows, 4 adversarial training steps at batch 2
+DAC_YAML = ROOT / "configs" / "dac" / "16khz_dns_9k.yml"
+DAC_CLIPS, DAC_CLIP = 4, 48000
+DAC_FILE_SECONDS, DAC_WIN = 10, 1.0
+DAC_STEPS, DAC_TIMED_STEPS = 4, 4
+DAC_TRAIN_BATCH, DAC_TRAIN_SAMPLES = 2, 32000
 
 
 def phase(name: str, t0: float, msg: str = "") -> float:
@@ -320,12 +351,12 @@ def main_path_calls(cfg: dict, batch: int, length: int, num_streams: int,
     return argmin, attn
 
 
-def chunk_lengths(cfg: dict, length: int, chunk_seconds: float,
-                  margin_seconds: float = 1.0) -> list:
-    """Sample lengths of the segments ``ESC.encode_chunked`` and
-    ``decode_chunked`` hand the model for a file of ``length`` samples:
-    chunks and margins in code frames, both multiples of ``window_size //
-    overlap`` (``esc_tpu_torch/models/codecs.py``, ``ESC._chunking``)."""
+def chunk_grid(cfg: dict, length: int, chunk_seconds: float,
+               margin_seconds: float):
+    """(samples per code frame, chunk, margin, code frames of a file of
+    ``length`` samples): chunks and margins in code frames, both multiples
+    of ``window_size // overlap``, as ``ESC._chunking`` and
+    ``parallel/chunked.py::_grid`` round them."""
     hop = int(cfg["hop_len"] * cfg["sr"] * 1e-3)
     spc = hop * cfg["patch_size"][1] * cfg["overlap"]
     align = max(1, cfg["window_size"] // cfg["overlap"])
@@ -333,6 +364,16 @@ def chunk_lengths(cfg: dict, length: int, chunk_seconds: float,
     margin = max(align, -(-int(margin_seconds * cfg["sr"]) // spc)
                  // align * align)
     total = (length // hop + 1) // cfg["patch_size"][1] // cfg["overlap"]
+    return spc, chunk, margin, total
+
+
+def chunk_lengths(cfg: dict, length: int, chunk_seconds: float,
+                  margin_seconds: float = 1.0) -> list:
+    """Sample lengths of the segments ``ESC.encode_chunked`` and
+    ``decode_chunked`` hand the model for a file of ``length`` samples
+    (``esc_tpu_torch/models/codecs.py``, ``ESC._chunking``)."""
+    spc, chunk, margin, total = chunk_grid(cfg, length, chunk_seconds,
+                                           margin_seconds)
     if total <= chunk:
         return [length]
     return [(min(total, s + chunk + margin) - max(0, s - margin)) * spc
@@ -1017,7 +1058,9 @@ def check_eval(kern, dev, rng, tmp: Path, sweep_calls) -> dict:
           f"host included)", flush=True)
     return {"perf_stats_cli": stats, "sweep": perf, "launches": launches,
             "s_per_audio_s": per_audio_s, "sweep_s": split, "cli_s": cli_s,
-            "code_mismatch": mismatch}
+            "code_mismatch": mismatch,
+            "dirs": {"tmp": str(tmp), "wavs": str(wavs),
+                     "model_dir": str(model_dir)}}
 
 
 def _loss_lines(text: str) -> list:
@@ -1694,6 +1737,356 @@ def check_ablation_training(kern, dev, rng, tmp: Path) -> dict:
             "eval_launches": launches, "conv_refused_s": refused}
 
 
+# ------------------------------------------------- phases 10 and 11
+def chunked_dp_calls(cfg: dict, length: int, n_dev: int,
+                     chunk_seconds: float = DP_CHUNK,
+                     margin_seconds: float = DP_MARGIN):
+    """The kernel calls of ``encode_chunked_dp`` then ``decode_chunked_dp``
+    of a file of ``length`` samples over ``n_dev`` replicas: every segment
+    is W = chunk + 2 * margin code frames (a roundtrip at batch 1 of W * 320
+    samples, as :func:`main_path_calls` gives it), in waves of ``n_dev``
+    with the last one filled. Returns (argmin calls, attention calls, the
+    segments of the file)."""
+    spc, chunk, margin, total = chunk_grid(cfg, length, chunk_seconds,
+                                           margin_seconds)
+    segments = -(-total // chunk)
+    run = -(-segments // n_dev) * n_dev
+    argmin, attn = main_path_calls(cfg, 1, (chunk + 2 * margin) * spc, 6)
+    return argmin * run, attn * run, segments
+
+
+def check_multicard(kern, dev, rng, eval_dirs: dict, eval_stats: dict):
+    """Phase 10: ESC-Base as published over every visible card: a 25 s
+    file through ``encode_chunked_dp`` / ``decode_chunked_dp`` against the
+    same replicas on the plain versions, with the launches predicted; the
+    test CLI's ``--data_parallel`` on phase 5's clips and model against
+    phase 5's ``perf_stats.json``; ms per audio second, serial and over the
+    replicas. Returns (summary, launches)."""
+    from esc_tpu_torch.models import make_model
+    from esc_tpu_torch.parallel import (Replicas, decode_chunked_dp,
+                                        encode_chunked_dp)
+    from esc_tpu_torch.utils.config import read_yaml
+
+    cfg = read_yaml(str(ESC_BASE_YAML))
+    m = cfg["model"]
+    model = make_model(m, cfg["model_name"], seed=SEED, device=dev)
+    plain = make_model(m, cfg["model_name"], seed=SEED, device=dev,
+                       plain_ops=True)
+    dp = Replicas()
+    n = dp.num_devices
+    L = DP_SECONDS * m["sr"]
+    x = speech_like(rng, L, 125.0)[None]
+    kw = dict(chunk_seconds=DP_CHUNK, margin_seconds=DP_MARGIN)
+
+    def roundtrip(codec, d):
+        codes, fs = encode_chunked_dp(codec, x, 6, dp=d, **kw)
+        return codes, fs, decode_chunked_dp(codec, codes, fs, dp=d, **kw)
+
+    roundtrip(model, dp)                       # warm-up, not counted
+    (codes, fs, recon), launches = counted(
+        kern, f"encode/decode_chunked_dp over {n} card(s)",
+        lambda: roundtrip(model, dp))
+    argmin_calls, attn_calls, segments = chunked_dp_calls(m, L, n)
+    want = {"codebook_argmin": len(argmin_calls),
+            "window_attention": len(attn_calls)}
+    if launches != want:
+        raise RuntimeError(f"chunked dp launches {launches}, predicted "
+                           f"{want} ({segments} segments)")
+    total = fs[1] // m["overlap"]
+    hop = int(m["hop_len"] * m["sr"] * 1e-3)
+    if tuple(codes.shape) != (1, 6, m["group_size"], total) or tuple(
+            recon.shape) != (1, (fs[1] * m["patch_size"][1] - 1) * hop) \
+            or not bool(torch.isfinite(recon).all()):
+        raise RuntimeError(f"chunked dp: codes {tuple(codes.shape)}, "
+                           f"waveform {tuple(recon.shape)}")
+    pcodes, _ = encode_chunked_dp(plain, x, 6, dp=dp, **kw)
+    mismatch = float((pcodes != codes).float().mean())
+    wave_err = float((decode_chunked_dp(plain, codes, fs, dp=dp, **kw)
+                      - recon).abs().max())
+    if mismatch > CODE_MISMATCH_MAX or wave_err > WAVE_ATOL:
+        raise RuntimeError(f"chunked dp: codes differ from the plain "
+                           f"versions' on {mismatch:.4%}, the same codes "
+                           f"decoded by {wave_err:.3g}")
+
+    def ms_per_audio_s(d):
+        def run():
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            roundtrip(model, d)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - start) * 1e3 / DP_SECONDS
+        return run
+
+    walls = paired({"serial": ms_per_audio_s(None),
+                    "replicas": ms_per_audio_s(dp)})
+    print(f"  encode/decode_chunked_dp of {DP_SECONDS} s ({segments} "
+          f"segments of {DP_CHUNK:g} s + 2 x {DP_MARGIN:g} s) over {n} "
+          f"card(s): launches {launches} as predicted; codes against the "
+          f"plain versions {mismatch:.4%} (<= 0.2%), the same codes decoded "
+          f"within {wave_err:.3g} (<= 5e-4)", flush=True)
+
+    out_dir = Path(eval_dirs["tmp"]) / "eval_out_dp"
+    said, cli_s = run_module("esc_tpu_torch.cli.test", [
+        "--eval_folder_path", eval_dirs["wavs"], "--model_path",
+        eval_dirs["model_dir"], "--batch_size", str(EVAL_BATCH),
+        "--num_streams", "6", "--save_path", str(out_dir),
+        "--data_parallel"])
+    if f"Evaluating on {n} device(s)" not in said:
+        raise RuntimeError(f"test CLI --data_parallel did not spread over "
+                           f"{n} card(s):\n{said}")
+    stats = json.loads((out_dir / "perf_stats.json").read_text())
+    # phase 5's bars: SI-SDR rtol 1e-2, every other score rtol 1e-3
+    if list(stats) != PERF_KEYS or not all(
+            len(v) == 1 and np.isfinite(v[0]) and np.allclose(
+                v, eval_stats[k], atol=2e-4,
+                rtol=EVAL_SISDR_RTOL if k == "SISDR" else EVAL_MEL_RTOL)
+            for k, v in stats.items()):
+        raise RuntimeError(f"test CLI --data_parallel: {stats}, phase 5 "
+                           f"{eval_stats}")
+    print(f"  test CLI --data_parallel over {n} card(s) ({cli_s:.2f} s, "
+          f"process start included): perf_stats.json {stats}, phase 5's "
+          f"{eval_stats}", flush=True)
+    print(f"multicard: {n} card(s); ms per audio second of the chunked "
+          f"roundtrip: serial {walls['serial']}, {n} replica(s) "
+          f"{walls['replicas']} (pairs, order alternating)", flush=True)
+    return {"cards": n, "segments": segments, "launches": launches,
+            "mismatch": mismatch, "wave_err": wave_err,
+            "ms_per_audio_s": walls, "perf_stats_cli": stats,
+            "cli_s": cli_s}, launches
+
+
+def dac_forward_calls(cfg: dict, batch: int, length: int) -> list:
+    """The argmin calls of one padded DAC forward of ``batch`` clips of
+    ``length`` samples: one per stage, every frame of every clip."""
+    hop = int(np.prod(cfg["encoder_rates"]))
+    rows = batch * -(-length // hop)
+    return [(rows, cfg["codebook_size"], cfg["codebook_dim"])] \
+        * cfg["n_codebooks"]
+
+
+def dac_padded_length(cfg: dict, length: int) -> int:
+    """The padded forward's output length: the input padded to whole hops,
+    each transposed conv's ``(T - 1) s - 2 ceil(s / 2) + 2 s`` (one sample
+    short at an odd rate, as the reference), cropped to the input's."""
+    T = -(-length // int(np.prod(cfg["encoder_rates"])))
+    for s in cfg["decoder_rates"]:
+        T = (T - 1) * s - 2 * -(-s // 2) + 2 * s
+    return min(T, length)
+
+
+def dac_compress_calls(cfg: dict, length: int) -> list:
+    """The argmin calls of ``DAC.compress`` of ``length`` samples in
+    windows of :data:`DAC_WIN` seconds: unpadded windows of ``n_samples``
+    that advance by the whole model's unpadded output, each encoded to the
+    encoder's unpadded length (``esc_tpu_torch/baselines/dac/model.py``)."""
+    from esc_tpu_torch.baselines.dac.model import conv_specs, output_length
+
+    hop = int(np.prod(cfg["encoder_rates"]))
+    if length <= DAC_WIN * cfg["sample_rate"]:
+        return dac_forward_calls(cfg, 1, length)
+    specs = conv_specs(cfg["encoder_rates"], cfg["decoder_rates"])
+    n_samples = -(-int(DAC_WIN * cfg["sample_rate"]) // hop) * hop
+    windows = len(range(0, length, output_length(specs, n_samples)))
+    rows = output_length(specs[:2 + 7 * len(cfg["encoder_rates"])],
+                         n_samples)
+    return [(rows, cfg["codebook_size"], cfg["codebook_dim"])] \
+        * (cfg["n_codebooks"] * windows)
+
+
+def _iter_lines(text: str) -> list:
+    """The values of each ``[iter n/N ...] k: v | ...`` line of a log."""
+    import re
+    lines = []
+    for line in text.splitlines():
+        hit = re.match(r"\[iter \d+/\d+ \d+s\] (.*)", line)
+        if hit:
+            lines.append({k.strip(): float(v) for k, v in (
+                kv.split(":") for kv in hit.group(1).split("|"))})
+    return lines
+
+
+def check_dac(kern, dev, rng, tmp: Path) -> dict:
+    """Phase 11: the DAC of ``configs/dac/16khz_dns_9k.yml`` as published
+    (random weights from seed 0): the eval forward of 4 clips of 3 s and
+    ``compress`` of a 10 s wav, with the argmin's launches predicted,
+    against the same model on the plain argmin; the encode / decode CLI as
+    subprocesses; ``DACTrainer`` with the config's discriminator for 4
+    steps at batch 2 (no kernel launch in a step, the argmin in the
+    validation), steps timed by ``StepTimer.tic`` / ``toc``; one
+    ``trace()`` of a roundtrip. Returns (summary, the argmin calls of the
+    10 s compress, launches)."""
+    import contextlib
+    import io
+
+    from esc_tpu_torch.baselines.dac import DAC, DACFile
+    from esc_tpu_torch.baselines.dac.trainer import DACTrainer
+    from esc_tpu_torch.checkpoint import load_checkpoint
+    from esc_tpu_torch.convert import from_jax_params
+    from esc_tpu_torch.io import load_wav, save_wav
+    from esc_tpu_torch.models.discriminator import Discriminator
+    from esc_tpu_torch.utils.config import read_yaml
+    from esc_tpu_torch.utils.profiling import StepTimer, annotate, trace
+
+    cfg = read_yaml(str(DAC_YAML))
+    dcfg = cfg["DAC"]
+    sr = dcfg["sample_rate"]
+    model = DAC(seed=SEED, device=dev, **dcfg)
+    plain = DAC(seed=SEED, device=dev, plain_ops=True, **dcfg)
+    n_params = model.num_params()
+    x = np.stack([speech_like(rng, DAC_CLIP, 110.0 + 40 * i)
+                  for i in range(DAC_CLIPS)])
+    L = DAC_FILE_SECONDS * sr
+    wav = tmp / "dac_in.wav"
+    save_wav(str(wav), speech_like(rng, L, 150.0))
+
+    def drive():
+        return model(x), model.compress(str(wav), win_duration=DAC_WIN)
+
+    drive()                                    # warm-up, not counted
+    (out, f), launches = counted(kern, "the DAC's forward and compress",
+                                 drive, expect={"codebook_argmin"})
+    fwd_calls = dac_forward_calls(dcfg, DAC_CLIPS, DAC_CLIP)
+    file_calls = dac_compress_calls(dcfg, L)
+    windows = f.codes.shape[-1] // f.chunk_length
+    if launches["codebook_argmin"] != len(fwd_calls) + len(file_calls) \
+            or windows * dcfg["n_codebooks"] != len(file_calls) \
+            or f.padding or f.codes.shape[:2] != (1, dcfg["n_codebooks"]):
+        raise RuntimeError(f"DAC launches {launches}, predicted "
+                           f"{len(fwd_calls)} + {len(file_calls)}; "
+                           f"{windows} windows, codes {f.codes.shape}")
+    codes = out["codes"]
+    if tuple(codes.shape) != (DAC_CLIPS, dcfg["n_codebooks"],
+                              DAC_CLIP // model.hop_length) \
+            or tuple(out["audio"].shape) != (
+                DAC_CLIPS, dac_padded_length(dcfg, DAC_CLIP)) \
+            or not bool(torch.isfinite(out["audio"]).all()):
+        raise RuntimeError(f"DAC forward: codes {tuple(codes.shape)}, "
+                           f"audio {tuple(out['audio'].shape)}")
+    mismatch = {"forward": float((plain(x)["codes"] != codes).float()
+                                 .mean()),
+                "compress": float((plain.compress(
+                    str(wav), win_duration=DAC_WIN).codes != f.codes)
+                    .mean())}
+    wave_err = {"padded": float((plain.decode_codes(codes)
+                                 - model.decode_codes(codes)).abs().max()),
+                "window": float((plain.decode_codes(
+                    f.codes[..., :f.chunk_length], False)
+                    - model.decode_codes(f.codes[..., :f.chunk_length],
+                                         False)).abs().max())}
+    if max(mismatch.values()) > CODE_MISMATCH_MAX \
+            or max(wave_err.values()) > WAVE_ATOL:
+        raise RuntimeError(f"DAC: codes against the plain argmin "
+                           f"{mismatch}, the same codes decoded {wave_err}")
+    print(f"  DAC ({n_params / 1e6:.2f}M parameters): forward of "
+          f"{DAC_CLIPS} x {DAC_CLIP / sr:g} s and compress of "
+          f"{DAC_FILE_SECONDS} s ({windows} windows of {DAC_WIN:g} s): "
+          f"argmin launches {launches['codebook_argmin']} as predicted "
+          f"({len(fwd_calls)} + {dcfg['n_codebooks']} x {windows}); codes "
+          f"against the plain argmin {mismatch} (<= 0.2%); the same codes "
+          f"decoded within {wave_err} (<= 5e-4)", flush=True)
+
+    model_dir = tmp / "dac_model"
+    model_dir.mkdir()
+    torch.save({k: v.cpu() for k, v in model.state_dict().items()},
+               model_dir / "model.pth")
+    common = ["--model_path", str(model_dir), "--config", str(DAC_YAML)]
+    said, enc_s = run_module("esc_tpu_torch.baselines.dac", [
+        "encode", str(wav), "--output", str(tmp / "cli.dac"), *common])
+    said2, dec_s = run_module("esc_tpu_torch.baselines.dac", [
+        "decode", str(tmp / "cli.dac"), "--output", str(tmp / "cli.wav"),
+        *common])
+    g = DACFile.load(str(tmp / "cli.dac"))
+    y = load_wav(str(tmp / "cli.wav"))
+    cli_mismatch = float((g.codes != f.codes).mean()) \
+        if g.codes.shape == f.codes.shape else 1.0
+    if "model.pth" not in said or "model.pth" not in said2 \
+            or cli_mismatch > CODE_MISMATCH_MAX or g.original_length != L \
+            or y.shape != (L,) or not np.isfinite(y).all():
+        raise RuntimeError(f"DAC CLI: codes {g.codes.shape} differ from "
+                           f"compress on {cli_mismatch:.4%}, decoded "
+                           f"{y.shape}:\n{said}{said2}")
+    print(f"  DAC CLI: encode {enc_s:.2f} s, decode {dec_s:.2f} s (process "
+          f"start included); the .dac {g.codes.shape} loads, its codes "
+          f"differ from compress in this process on {cli_mismatch:.4%}, the "
+          f"decoded wav has the original {L} samples", flush=True)
+
+    data = tmp / "dac_data"
+    for split, f0 in (("train", 140.0), ("test", 190.0)):
+        (data / split).mkdir(parents=True)
+        for i in range(DAC_TRAIN_BATCH):
+            save_wav(str(data / split / f"utt_{i}.wav"),
+                     speech_like(rng, DAC_TRAIN_SAMPLES, f0 + 50 * i))
+    tcfg = dict(cfg, data_path=str(data), save_path=str(tmp / "dac_runs"),
+                batch_size=DAC_TRAIN_BATCH, val_batch_size=DAC_TRAIN_BATCH,
+                num_iters=DAC_STEPS, valid_freq=DAC_STEPS, log_every=1,
+                num_workers=2, seed=SEED)
+    trainer = DACTrainer(tcfg, adversarial=True, device=dev)
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        _, train_launches = counted(
+            kern, f"DACTrainer.train, {DAC_STEPS} steps and a validation",
+            lambda: trainer.train(DAC_STEPS), expect={"codebook_argmin"})
+    said = log.getvalue()
+    print(said, end="", flush=True)
+    logged = _iter_lines(said)
+    val_calls = dac_forward_calls(dcfg, DAC_TRAIN_BATCH,
+                                  DAC_TRAIN_SAMPLES - 80)
+    if len(logged) != DAC_STEPS or not all(
+            np.isfinite(v) for line in logged for v in line.values()) \
+            or train_launches["codebook_argmin"] != len(val_calls):
+        raise RuntimeError(f"DACTrainer logged {logged}, launched "
+                           f"{train_launches} (validation {len(val_calls)})")
+    for tag in ("latest", "best"):
+        payload = load_checkpoint(str(tmp / "dac_runs" / f"{tag}.ckpt"))
+        DAC(device="cpu", **dcfg).load_state_dict(
+            from_jax_params(payload["model_state_dict"]))
+        Discriminator(**cfg["Discriminator"]).load_state_dict(
+            from_jax_params(payload["model_disc_state_dict"]))
+        if payload["step"] != DAC_STEPS:
+            raise RuntimeError(f"{tag}.ckpt at step {payload['step']}")
+    batch = np.stack([load_wav(str(data / "train" / f"utt_{i}.wav"))[:-80]
+                      for i in range(DAC_TRAIN_BATCH)])
+    n_q = trainer.dropout(DAC_TRAIN_BATCH)
+    timer = StepTimer(dev, warmup=1)
+    torch.cuda.reset_peak_memory_stats()
+
+    def steps():
+        for _ in range(DAC_TIMED_STEPS):
+            timer.tic()
+            trainer.train_step(batch, n_q)
+            timer.toc()
+
+    counted(kern, f"{DAC_TIMED_STEPS} DAC training steps", steps, ran=False)
+    peak = torch.cuda.max_memory_allocated()
+    rate = timer.summary()["steps_per_s"]
+    with tempfile.TemporaryDirectory() as logdir:
+        with trace(logdir):
+            with annotate("dac_roundtrip"):
+                model.decode_codes(model.encode_codes(x[:1]))
+        traces = list(Path(logdir).glob("*.json"))
+        text = traces[0].read_text() if len(traces) == 1 else ""
+    if "dac_roundtrip" not in text or "codebook_argmin" not in text:
+        raise RuntimeError(f"trace(): {len(traces)} files, the annotation "
+                           "or the argmin kernel missing")
+    print(f"  DACTrainer ({DAC_STEPS} adversarial steps at batch "
+          f"{DAC_TRAIN_BATCH} x {(DAC_TRAIN_SAMPLES - 80) / sr:.3f} s, a "
+          f"validation): losses finite, the argmin {len(val_calls)} times "
+          f"in the validation and never in a step; latest and best.ckpt "
+          f"load; trace() wrote {traces[0].name} with the annotation and "
+          "the argmin kernel", flush=True)
+    print(f"dac: {rate:.3f} adversarial DAC steps per second "
+          f"(StepTimer tic/toc, {DAC_TIMED_STEPS} steps, the first left "
+          f"out), peak memory {peak / 2 ** 30:.3f} GiB (DAC "
+          f"{n_params / 1e6:.2f}M + the config's discriminator, batch "
+          f"{DAC_TRAIN_BATCH}, fp32, TF32 off)", flush=True)
+    return {"params": n_params, "launches": launches, "windows": windows,
+            "mismatch": mismatch, "wave_err": wave_err,
+            "cli_s": {"encode": enc_s, "decode": dec_s},
+            "cli_mismatch": cli_mismatch, "train_losses": logged,
+            "train_launches": train_launches, "steps_per_s": rate,
+            "peak_bytes": peak}, file_calls, launches
+
+
 def _flat_tree(tree: dict, prefix: str = "") -> dict:
     out = {}
     for k, v in tree.items():
@@ -1898,10 +2291,19 @@ def main() -> int:
     adv_val = main_path_calls(read_yaml(str(ESC_ADV_YAML))["model"],
                               TRAIN_BATCH, TRAIN_SAMPLES - 80,
                               ESC_BASE["max_streams"], forward=True)
+    # phase 11's DAC (K 1024, d 8): its forward, the windows of its
+    # compress and its trainer's validation
+    dac_cfg = read_yaml(str(DAC_YAML))["DAC"]
+    dac_argmin = (dac_forward_calls(dac_cfg, DAC_CLIPS, DAC_CLIP)
+                  + dac_compress_calls(dac_cfg, DAC_FILE_SECONDS
+                                       * dac_cfg["sample_rate"])
+                  + dac_forward_calls(dac_cfg, DAC_TRAIN_BATCH,
+                                      DAC_TRAIN_SAMPLES - 80))
     sweep_argmin = [c for a, _ in sweep_calls for c in a]
     sweep_attn = {(G, nh, hd) for _, t in sweep_calls for G, nh, hd, _ in t}
     argmin_err = check_argmin(KERNELS, rng, dev, whole[0] + chunked[0]
-                              + sweep_argmin + val_calls[0] + adv_val[0])
+                              + sweep_argmin + val_calls[0] + adv_val[0]
+                              + dac_argmin)
     attn_err = check_attention(KERNELS, rng, dev, attn_shapes + ATTN_RAGGED
                                + ATTN_WIDE + sorted(sweep_attn))
     attn_err = max(attn_err, check_attention(
@@ -1971,8 +2373,10 @@ def main() -> int:
     t0 = phase("3c cli", t0, "the compress CLI ok, fp32 and bf16 chunked")
     serving = check_serving(KERNELS, model, rng)
     t0 = phase("3d serving", t0, "stream_roundtrip ok")
-    with tempfile.TemporaryDirectory() as tmp:
-        evaluation = check_eval(KERNELS, dev, rng, Path(tmp), sweep_calls)
+    # phase 5's clips and model directory serve phase 10's test CLI too
+    eval_tmp = tempfile.TemporaryDirectory()
+    evaluation = check_eval(KERNELS, dev, rng, Path(eval_tmp.name),
+                            sweep_calls)
     t0 = phase("5 eval", t0, "the test CLI and the eval sweep ok")
     with tempfile.TemporaryDirectory() as tmp:
         training, train_step = check_train(KERNELS, dev, rng, Path(tmp),
@@ -1995,6 +2399,17 @@ def main() -> int:
     t0 = phase("9 ablation", t0, "rvq+swinT, csvq+conv and rvq+conv: "
                "roundtrips, the three CLIs, training and its refusal, "
                "checkpoints ok")
+    with eval_tmp:
+        multicard, dp_launches = check_multicard(
+            KERNELS, dev, rng, evaluation.pop("dirs"),
+            evaluation["perf_stats_cli"])
+    t0 = phase("10 multicard", t0, f"chunked serving and --data_parallel "
+               f"over {multicard['cards']} card(s) ok")
+    with tempfile.TemporaryDirectory() as tmp:
+        dac, dac_file_calls, dac_launches = check_dac(KERNELS, dev, rng,
+                                                      Path(tmp))
+    t0 = phase("11 dac", t0, "the DAC's forward, compress, CLI, trainer "
+               "and trace ok")
 
     for what, fn in (("one roundtrip", lambda: model.roundtrip(
             x, num_streams=6)), ("one training step (phase 6)", train_step)):
@@ -2004,6 +2419,13 @@ def main() -> int:
         timing[name].update(tm)
     wide = time_wide(KERNELS, rng, dev)
     ablation_timing = time_ablations(KERNELS, rng, dev)
+    dac_timing = time_argmin(KERNELS, rng, dev, dac_file_calls, "device")
+    dac_bound = bound_ms(dac_timing["bytes"], dac_timing["flops"])
+    print(f"  codebook_argmin per {DAC_FILE_SECONDS} s DAC compress "
+          f"({len(dac_file_calls)} launches), device ms: kernel "
+          f"{dac_timing['device_ms']:.4f}, plain {dac_timing['plain_ms']:.4f}"
+          f", library {dac_timing['library_ms']:.4f}, bound "
+          f"{dac_bound[0]:.4f} ({dac_bound[1]})", flush=True)
     for name, tm in timing.items():
         print(f"  {name} per roundtrip at ns=6, device / call ms: kernel "
               f"{tm['device_ms']:.4f} / {tm['call_ms']:.4f}, plain "
@@ -2033,14 +2455,23 @@ def main() -> int:
             "adv_step_launches": adversarial["step_launches"][name],
             "adv_eval_launches": adversarial["eval_launches"][name],
             "ablation": {codec: tms[name] for codec, tms in
-                         ablation_timing.items() if name in tms}})
+                         ablation_timing.items() if name in tms},
+            "dac_launches": dac_launches[name],
+            "chunked_dp_launches": dp_launches[name]})
+    summary[0]["dac"] = {
+        "shape": f"{len(dac_file_calls)} x {dac_file_calls[0]} per "
+                 f"{DAC_FILE_SECONDS} s compress",
+        "ms": dac_timing["device_ms"], "plain_ms": dac_timing["plain_ms"],
+        "library_ms": dac_timing["library_ms"], "bound_ms": dac_bound[0],
+        "bound_by": dac_bound[1], "launches": len(dac_file_calls)}
     print(json.dumps({"paths": {
         "bf16_code_agreement": bf16_agree, "real_time_factor": {
             "fp32_plain": rtf["plain"], "fp32_kernels": rtf["kernels"],
             **{f"{k}_phase_3b": v for k, v in bf16_rtf.items()},
             **{f"stream_{k}": v for k, v in serving.items()}},
         "cli": cli_run, "eval": evaluation, "train": training,
-        "adv": adversarial, "dp": data_parallel, "ablation": ablations}}),
+        "adv": adversarial, "dp": data_parallel, "ablation": ablations,
+        "multicard": multicard, "dac": dac}}),
         flush=True)
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {

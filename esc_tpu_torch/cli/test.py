@@ -10,6 +10,9 @@ Sweeps every bitrate (or one, ``--num_streams``) and writes
 (``PESQ``, ``MelDistance``, ``SISDR``, ``STOI``, ``utilization``) a list
 over the bitrates. Every batch is padded to one length and scored on each
 utterance's true length, so the scores do not depend on the batch size.
+``--data_parallel`` copies the model onto every visible card (one process;
+with ``--device cpu``, the CPU alone) and splits each batch's rows over
+them where they divide evenly.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import os
 
 from ..metrics import (HAVE_PESQ, PESQ, SISDR, STOI, EntropyCounter,
                        MelSpectrogramDistance)
+from ..parallel import Replicas
 from ..train.data import make_dataloader
 from ..train.evaluate import eval_epoch
 from ..utils.config import read_yaml
@@ -39,7 +43,7 @@ def parse_args(argv=None):
     p.add_argument("--num_streams", type=int, default=None,
                    help="evaluate a single bitrate instead of the sweep")
     p.add_argument("--data_parallel", action="store_true",
-                   help="not ported yet: one device evaluates")
+                   help="split eval batches over every visible card")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device (default cuda; cpu runs the plain "
                         "PyTorch versions of the kernels)")
@@ -50,9 +54,6 @@ def parse_args(argv=None):
 
 
 def run(args) -> dict:
-    if args.data_parallel:
-        raise NotImplementedError(
-            "--data_parallel: evaluation on several GPUs is not ported yet")
     model = load_model(args.model_path, device=args.device, dtype=args.dtype)
     eval_loader = make_dataloader(args.eval_folder_path, args.batch_size,
                                   shuffle=False, pad_eval=True,
@@ -67,9 +68,14 @@ def run(args) -> dict:
     e_counter = EntropyCounter(cfg["codebook_size"],
                                num_streams=cfg["max_streams"],
                                num_groups=cfg.get("group_size", 3))
+    dp = Replicas.visible(model.device) if args.data_parallel else None
+    if dp is not None:
+        print(f"Evaluating on {dp.num_devices} device(s): "
+              f"{', '.join(map(str, dp.devices))}")
     performances = eval_epoch(model, eval_loader, metric_funcs, e_counter,
                               bps_per_stream=1.5,
-                              num_streams=args.num_streams, verbose=True)
+                              num_streams=args.num_streams, verbose=True,
+                              dp=dp)
     save_path = args.save_path or args.model_path
     os.makedirs(save_path, exist_ok=True)
     with open(os.path.join(save_path, "perf_stats.json"), "w") as f:

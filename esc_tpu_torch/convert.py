@@ -25,6 +25,23 @@ flax's ``batch_stats`` collection, are the modules' running buffers:
         -> .../block.1.weight, .../block.2.weight
     batch_stats: .../block_1/mean, var -> .../block.1.running_mean, _var
 
+The DAC baseline (``esc_tpu/baselines/dac``) wraps each convolution as
+``nn.WeightNorm(nn.Conv(...), name="conv")`` inside a module of its own
+name, and its lists are ``block_N`` / ``model_N`` / ``quantizers_N``:
+
+    encoder/block_1/block_0/block_1/Conv_0/kernel   (WIO)
+        -> encoder.block.1.block.0.block.1.weight_v   (OIW)
+    encoder/block_1/block_0/block_1/conv/Conv_0/kernel/scale
+        -> encoder.block.1.block.0.block.1.weight_g   ((out,) -> (out, 1, 1))
+    decoder/model_1/block_1/ConvTranspose_0/kernel  (WOI)
+        -> decoder.model.1.block.1.weight_v           (IOW)
+    encoder/block_5/alpha (1, 1, C)  -> encoder.block.5.alpha (1, C, 1)
+    quantizer/quantizers_0/codebook  -> quantizer.quantizers.0.codebook.weight
+
+These are the keys of the reference's ``torch.nn.utils.weight_norm``
+state dicts (a transposed convolution's ``weight_g`` is per input channel,
+as flax's scale over its kernel's last axis).
+
 A flax ``ConvTranspose(transpose_kernel=True)`` kernel is HWOI, and torch's
 ``ConvTranspose2d`` weight IOHW, so the one permutation of conv kernels
 carries both (``esc_tpu/convert.py:12-19``).
@@ -59,15 +76,20 @@ __all__ = ["from_jax_params", "to_jax_params", "to_jax_variables",
 _LIST_COMPONENT = re.compile(r"^(.*)_(\d+)$")
 # flax submodule names that are list entries in the torch module tree
 _LIST_NAMES = {"blocks", "swint_blocks", "quantizers", "vqs", "down_projs",
-               "up_projs", "discriminators", "convs", "band_convs", "block"}
+               "up_projs", "discriminators", "convs", "band_convs", "block",
+               "model"}
 _LEAF_NAMES = {"kernel": "weight", "scale": "weight", "bias": "bias",
                "weight": "weight",                          # PReLU's slope
                "embedding": "embedding.weight",
+               "codebook": "codebook.weight", "alpha": "alpha",  # the DAC's
                "relative_position_bias_table": "relative_position_bias_table",
                "mean": "running_mean", "var": "running_var"}  # batch_stats
 _STATS = {"running_mean": "mean", "running_var": "var"}
 _WN_INNER = "Conv_0"                  # nn.WeightNorm's wrapped nn.Conv
-_WN_SCALE = "Conv_0/kernel/scale"     # its scale, one flax key
+# the names of nn.WeightNorm wrappers, and of the layers they wrap (a
+# wrapper's scale is one flax key, "<layer>/kernel/scale")
+_WN_WRAPPERS = ("wn", "conv")
+_WN_LAYERS = ("Conv_0", "ConvTranspose_0")
 
 
 def _split_list_name(name: str):
@@ -85,9 +107,10 @@ def flax_path_to_key(path) -> str:
     ``'encoder.blocks.0.attn.qkv.weight'``; weight-normalised convolutions
     as in the module docstring."""
     *mods, leaf = path
-    if leaf == _WN_SCALE and mods and mods[-1] == "wn":
+    if mods and mods[-1] in _WN_WRAPPERS and leaf in (
+            f"{layer}/kernel/scale" for layer in _WN_LAYERS):
         mods, name = mods[:-1], "weight_g"
-    elif mods and mods[-1] == _WN_INNER and leaf in ("kernel", "bias"):
+    elif mods and mods[-1] in _WN_LAYERS and leaf in ("kernel", "bias"):
         mods, name = mods[:-1], "weight_v" if leaf == "kernel" else "bias"
     elif leaf in _LEAF_NAMES:
         name = _LEAF_NAMES[leaf]
@@ -127,6 +150,8 @@ def from_jax_params(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         v = np.asarray(leaf, dtype=np.float32)
         if path[-1] == "kernel" and v.ndim in _TO_TORCH:
             v = v.transpose(_TO_TORCH[v.ndim])
+        elif path[-1] == "alpha":               # snake (1, 1, C) -> NCW
+            v = v.reshape(1, -1, 1)
         out[flax_path_to_key(path)] = v
     for key, v in out.items():
         if key.endswith(".weight_g"):
@@ -178,22 +203,28 @@ def to_jax_params(module: nn.Module) -> Dict[str, Any]:
     (transposed convs' IOHW weights HWOI ones), LayerNorm and BatchNorm
     weights ``scale``, PReLU slopes stay ``weight``, weight-normalised
     convolutions ``Conv_0/kernel``, ``Conv_0/bias`` and
-    ``wn/Conv_0/kernel/scale``."""
+    ``wn/Conv_0/kernel/scale`` (the DAC's under the names its layers give,
+    ``flax_names``), snake alphas ``(1, 1, C)``."""
     tree: Dict[str, Any] = {}
     for name, sub in module.named_modules():
         weight_norm = "weight_v" in sub._parameters
+        wrapper, layer = getattr(sub, "flax_names", ("wn", _WN_INNER))
         for leaf, p in sub.named_parameters(recurse=False):
             v = p.detach().cpu().float().numpy()
             mods = name.split(".") if name else []
             if weight_norm:
                 if leaf == "weight_g":
-                    mods, leaf, v = mods + ["wn"], _WN_SCALE, v.reshape(-1)
+                    mods, leaf, v = (mods + [wrapper], f"{layer}/kernel/scale",
+                                     v.reshape(-1))
                 else:
-                    mods = mods + [_WN_INNER]
+                    mods = mods + [layer]
                     if leaf == "weight_v":
                         leaf, v = "kernel", v.transpose(_TO_FLAX[v.ndim])
             elif isinstance(sub, nn.Embedding):
-                mods, leaf = mods[:-1], mods[-1]     # .../vqs_m/embedding
+                # .../vqs_m/embedding, or the DAC's .../quantizers_m/codebook
+                mods, leaf = mods[:-1], mods[-1]
+            elif leaf == "alpha":                   # snake (1, C, 1)
+                v = v.reshape(1, 1, -1)
             elif leaf == "weight" and isinstance(
                     sub, (nn.LayerNorm, nn.modules.batchnorm._BatchNorm)):
                 leaf = "scale"

@@ -56,6 +56,14 @@ from .csrvq import CrossScaleRVQDecoder
 __all__ = ["ESCModule", "RVQModule", "Codec", "ESC", "RVQCodecs",
            "model_dict", "make_model"]
 
+# reference state-dict keys that hold no weight of the port's modules, as
+# esc_tpu's converter ignores them (esc_tpu/convert.py:172-173): the
+# torchaudio STFT transforms at the top of the reference's module, and
+# buffers anywhere
+IGNORED_PREFIXES = ("ft.", "ift.")
+IGNORED_PARTS = ("relative_position_index", "num_batches_tracked",
+                 "mel_transf")
+
 
 class ESCModule(nn.Module):
     """Efficient Speech Codec: product VQs at every decoder scale."""
@@ -269,10 +277,16 @@ class Codec:
         return self.module.state_dict()
 
     def load_state_dict(self, state_dict, strict: bool = True):
-        """Load torch-key weights; the reference's
-        ``relative_position_index`` buffers are rebuilt, not loaded."""
+        """Load torch-key weights. The keys of :data:`IGNORED_PREFIXES`
+        and :data:`IGNORED_PARTS` that the module does not hold are dropped:
+        the reference's ``relative_position_index`` buffers (rebuilt here),
+        its torchaudio STFT windows ``ft.window`` / ``ift.window``
+        (constants here), its mel transforms, and ``num_batches_tracked``
+        where no BatchNorm takes it. Every other key loads strictly."""
+        own = self.module.state_dict()
         sd = {k: torch.as_tensor(v) for k, v in state_dict.items()
-              if not k.endswith("relative_position_index")}
+              if k in own or not (k.startswith(IGNORED_PREFIXES) or any(
+                  part in k for part in IGNORED_PARTS))}
         return self.module.load_state_dict(sd, strict=strict)
 
     def num_params(self) -> int:

@@ -33,13 +33,13 @@ _f32 = np.float32
 
 
 def make_schedule(scheduler_type: str, base_lr: float,
-                  total_steps: int = 250000, warmup_steps: int = 0
-                  ) -> Callable[[int], float]:
+                  total_steps: int = 250000, warmup_steps: int = 0,
+                  gamma: float = GAMMA) -> Callable[[int], float]:
     """The learning rate at update count ``step`` (scripts/utils.py:52-65):
     ``constant``, ``constant_warmup`` (linear from 0 over ``warmup_steps``),
     ``cosine_warmup`` (linear warm-up, then a half cosine to 0 at
     ``total_steps``, as ``transformers.get_cosine_schedule_with_warmup``)
-    or ``exponential_decay`` (``base_lr * GAMMA ** step``)."""
+    or ``exponential_decay`` (``base_lr * gamma ** step``)."""
     lr = _f32(base_lr)
     if scheduler_type == "constant":
         return lambda step: float(lr)
@@ -63,7 +63,7 @@ def make_schedule(scheduler_type: str, base_lr: float,
             return float(lr * (warm if step < warmup_steps else cos))
         return sched
     if scheduler_type == "exponential_decay":
-        return lambda step: float(lr * np.power(_f32(GAMMA), _f32(step),
+        return lambda step: float(lr * np.power(_f32(gamma), _f32(step),
                                                 dtype=_f32))
     raise ValueError(f"{scheduler_type} must be in {SCHEDULES}")
 
@@ -73,15 +73,18 @@ class AdamW:
     the gradients before the step (scripts/trainer_no_adv.py:116-117).
 
     ``schedule`` (:func:`make_schedule`) gives the learning rate at the
-    update count. The state is the count and both moments, by parameter
-    name (:meth:`state_dict`); :meth:`renew` starts them again.
+    update count; ``betas`` are torch's defaults unless given (the DAC
+    trainer's are (0.8, 0.99)). The state is the count and both moments, by
+    parameter name (:meth:`state_dict`); :meth:`renew` starts them again.
     """
 
     def __init__(self, named_params: Iterable[Tuple[str, torch.Tensor]],
                  schedule: Callable[[int], float],
-                 clip_norm: Optional[float] = None):
+                 clip_norm: Optional[float] = None,
+                 betas: Tuple[float, float] = (B1, B2)):
         self.names, self.params = map(list, zip(*named_params))
         self.schedule, self.clip_norm = schedule, clip_norm
+        self.b1, self.b2 = betas
         self.renew()
 
     def renew(self) -> None:
@@ -108,15 +111,16 @@ class AdamW:
             grads = self._clipped(grads)
         lr = self.schedule(self.count)
         self.count += 1
-        bc1 = float(_f32(1) - np.power(_f32(B1), _f32(self.count),
+        b1, b2 = self.b1, self.b2
+        bc1 = float(_f32(1) - np.power(_f32(b1), _f32(self.count),
                                        dtype=_f32))
-        bc2 = float(_f32(1) - np.power(_f32(B2), _f32(self.count),
+        bc2 = float(_f32(1) - np.power(_f32(b2), _f32(self.count),
                                        dtype=_f32))
-        torch._foreach_mul_(self.mu, B1)
-        torch._foreach_add_(self.mu, torch._foreach_mul(grads, 1 - B1))
-        torch._foreach_mul_(self.nu, B2)
+        torch._foreach_mul_(self.mu, b1)
+        torch._foreach_add_(self.mu, torch._foreach_mul(grads, 1 - b1))
+        torch._foreach_mul_(self.nu, b2)
         torch._foreach_add_(self.nu, torch._foreach_mul(
-            torch._foreach_mul(grads, grads), 1 - B2))
+            torch._foreach_mul(grads, grads), 1 - b2))
         denom = torch._foreach_div(self.nu, bc2)
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, EPS)

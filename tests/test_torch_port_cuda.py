@@ -518,3 +518,104 @@ def test_adversarial_steps_on_the_card_are_reproducible(rng, cuda, tmp_path):
                         list(t.model.module.parameters())
                         + list(t.disc.parameters())])
     assert all(torch.equal(a, b) for a, b in zip(*weights))
+
+
+# ------------------------------------------- the DAC and several cards
+DAC_SMALL = dict(sample_rate=16000, encoder_dim=8, encoder_rates=[2, 4, 5, 8],
+                 decoder_dim=96, decoder_rates=[8, 5, 4, 2], n_codebooks=4,
+                 codebook_size=1024, codebook_dim=8)
+
+
+@pytest.mark.parametrize("N", [1, 25, 47, 50, 200, 2400])
+def test_argmin_kernel_at_the_dac_shapes(rng, cuda, N):
+    """The DAC's 1024 x 8 cosine codebooks: a 1 s unpadded window gives
+    tens of rows, 4 clips of 3 s 600, a padded 10 s file 500 a stage."""
+    z, cb = _normed(rng, (N, 8), cuda), _normed(rng, (1024, 8), cuda)
+    ours = codebook_argmin(z, cb)
+    assert bool(((ours == codebook_argmin_plain(z, cb))
+                 | _near_tie(z, cb)).all())
+
+
+def test_dac_on_the_kernel_matches_plain(rng, cuda):
+    """The DAC's searches, kernel against plain: at every stage of a
+    forward, fed the same residual, the codes differ only on near ties;
+    over the whole forward (4 clips of 3 s, 2,400 codes) on at most 0.2 %;
+    compress launches the kernel once a stage and window, and the same
+    codes decode alike."""
+    from esc_tpu_torch.baselines.dac import DAC
+    from esc_tpu_torch.modules.vq import _l2_normalize
+
+    model = DAC(seed=3, device=cuda, **DAC_SMALL)
+    plain = DAC(seed=3, device=cuda, plain_ops=True, **DAC_SMALL)
+    x = (0.2 * rng.standard_normal((4, 3 * 16000))).astype(np.float32)
+    with torch.no_grad():
+        residual = model.module.encoder(torch.tensor(x, device=cuda)[:, None])
+        for q in model.module.quantizer.quantizers:
+            z_e = q.in_proj(residual)
+            z = _l2_normalize(z_e.transpose(1, 2).reshape(-1, 8))
+            cb = _l2_normalize(q.codebook.weight)
+            ours, ref = codebook_argmin(z, cb), codebook_argmin_plain(z, cb)
+            assert bool(((ours == ref) | _near_tie(z, cb)).all())
+            residual = residual - q(residual)[0]
+    codes = model(x)["codes"]
+    mismatch = float((plain(x)["codes"] != codes).float().mean())
+    assert codes.numel() == 2400 and mismatch <= 2e-3, f"{mismatch:.4%}"
+    before = (codebook_argmin.launches, window_attention.launches)
+    f = model.compress(x[0, :2 * 16000], win_duration=1.0)
+    torch.cuda.synchronize()
+    windows = f.codes.shape[-1] // f.chunk_length
+    assert codebook_argmin.launches == before[0] + 4 * windows
+    assert window_attention.launches == before[1]
+    # the same codes decoded by both, before the loudness normalisation
+    window = f.codes[..., :f.chunk_length]
+    torch.testing.assert_close(plain.decode_codes(window, False),
+                               model.decode_codes(window, False),
+                               atol=5e-4, rtol=0)
+
+
+def test_chunked_dp_over_every_card_equals_the_serial_pass(rng, cuda):
+    from esc_tpu_torch.parallel import (Replicas, decode_chunked_dp,
+                                        encode_chunked_dp)
+
+    model = ESC(seed=2, device=cuda, **SMALL)
+    x = (0.1 * rng.standard_normal((1, 60 * 320 - 80))).astype(np.float32)
+    kw = dict(chunk_seconds=0.5, margin_seconds=0.25)
+    dp = Replicas()
+    assert dp.num_devices == torch.cuda.device_count()
+    serial, fs = encode_chunked_dp(model, x, 6, **kw)
+    spread, _ = encode_chunked_dp(model, x, 6, dp=dp, **kw)
+    assert torch.equal(spread, serial)
+    torch.testing.assert_close(decode_chunked_dp(model, spread, fs, dp=dp,
+                                                 **kw),
+                               decode_chunked_dp(model, serial, fs, **kw),
+                               atol=0, rtol=0)
+
+
+def test_kernels_on_a_second_card(rng, cuda):
+    """Both kernels launched on cuda:1 while cuda:0 is current: the
+    wrappers make the tensors' card current for the launch, and each card
+    takes its own shared-memory attribute."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs a second CUDA device: this host has one card")
+    dev = torch.device("cuda", 1)
+    torch.cuda.set_device(0)
+    for N, K, d in ((600, 1024, 8), (50, 1024, 8), (600, 1024, 64)):
+        z, cb = _normed(rng, (N, d), dev), _normed(rng, (K, d), dev)
+        ours = codebook_argmin(z, cb)
+        assert ours.device == dev
+        assert bool(((ours == codebook_argmin_plain(z, cb))
+                     | _near_tie(z, cb)).all())
+    for G, nh, hd in ((1200, 3, 15), (300, 16, 64)):
+        qkv = torch.tensor(rng.standard_normal((G, 16, 3 * nh * hd)),
+                           dtype=torch.float32, device=dev)
+        bias = torch.tensor(rng.standard_normal((nh, 16, 16)),
+                            dtype=torch.float32, device=dev)
+        mask = torch.tensor(np.where(rng.random((G // 4, 16, 16)) > 0.5,
+                                     0.0, -100.0), dtype=torch.float32,
+                            device=dev)
+        ours = window_attention(qkv, bias, mask, nh, hd ** -0.5)
+        assert ours.device == dev
+        torch.testing.assert_close(
+            ours, window_attention_plain(qkv, bias, mask, nh, hd ** -0.5),
+            atol=2e-5, rtol=1e-5)
+    assert torch.cuda.current_device() == 0

@@ -214,7 +214,8 @@ def test_test_cli_defaults_to_the_card_and_refuses_data_parallel(
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         port_test_cli.run(args)
-    with pytest.raises(NotImplementedError, match="data_parallel"):
+    # --data_parallel spreads over every visible card: none here
+    with pytest.raises(RuntimeError, match="device='cpu'"):
         port_test_cli.run(port_test_cli.parse_args(
             ["--eval_folder_path", eval_folder, "--model_path",
-             str(model_dir), "--data_parallel", "--device", "cpu"]))
+             str(model_dir), "--data_parallel"]))
