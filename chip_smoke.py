@@ -39,8 +39,11 @@ Phases, each ending with one line that carries its seconds:
             against the plain model's; eval seconds per audio second
 6. train    python -m esc_tpu_torch.cli.train as a subprocess for 4 steps
             of ESC-Base (one freeze step, the renewal, two evaluations):
-            finite logged losses, pretrained/best/checkpoint.ckpt that load;
-            then 20 steps in this process on one fixed batch: the loss
+            finite logged losses, pretrained/best/checkpoint.ckpt that load,
+            checkpoint.ckpt's optimizer state in optax's layout (esc_tpu's
+            chain) and the CLI's --resume taking it on the card, count and
+            moments bit for bit; then 20 steps in this process on one fixed
+            batch: the loss
             falls, no kernel launches, and both kernels launch in the
             evaluation; steps per second and peak memory
 7. adv      python -m esc_tpu_torch.cli.train --adv_training as a
@@ -95,6 +98,16 @@ Phases, each ending with one line that carries its seconds:
             that load, no kernel in a step, the argmin in the validation),
             steps per second by StepTimer tic/toc, peak memory; one trace()
             of a DAC roundtrip
+12. encodec  EnCodec 24 kHz as published (encodec_24khz: 32 filters,
+            ratios 8 5 4 2, dimension 128, a 2-layer SLSTM, 32 x 1024
+            codebooks; 19.05M values, random weights from seed 0): the
+            comparison wrapper Encodec(bandwidth=b) on 4 generated clips of
+            3 s at 16 kHz, resampled in and out, at 1.5, 6 and 24 kbps, with
+            no kernel launch; codes card against CPU on the same weights
+            and the CPU's codes decoded on both; a release-format file
+            ({"best_state": ...} with the EMA buffers) through
+            load_torch_weights, the same codes; real-time factor, encode
+            and decode ms, peak memory at 6 and 24 kbps
 4. profile  device time by kernel over one roundtrip, one training step and
             one adversarial step, each half of it apart (torch.profiler),
             the MRD spectrograms' device time; then each kernel's, its plain
@@ -102,12 +115,12 @@ Phases, each ending with one line that carries its seconds:
             phase 2, at those of the ablations' roundtrips and at those of
             the DAC's 10 s compress
 
-Phases 5-11 run before phase 4: a profiler session slows the host's later
-launches in the same process. Each path of phases 3-7 and 9-11 is driven
+Phases 5-12 run before phase 4: a profiler session slows the host's later
+launches in the same process. Each path of phases 3-7 and 9-12 is driven
 with the launch counts set to 0 just before it and read just after; every
 kernel of the path must have run in it (in the training steps of phases
-6, 7, 9 and 11, none may; in a conv codec's roundtrip and in the DAC, the
-attention may not).
+6, 7, 9 and 11 and in EnCodec, none may; in a conv codec's roundtrip and
+in the DAC, the attention may not).
 
 The second-to-last line is the kernels' JSON summary, the last
 {"ok": true, "device": {...}}. Any failed check raises: the script then
@@ -217,6 +230,12 @@ DAC_CLIPS, DAC_CLIP = 4, 48000
 DAC_FILE_SECONDS, DAC_WIN = 10, 1.0
 DAC_STEPS, DAC_TIMED_STEPS = 4, 4
 DAC_TRAIN_BATCH, DAC_TRAIN_SAMPLES = 2, 32000
+# phase 12: EnCodec 24 kHz as published (encodec_24khz), 4 clips of 3 s at
+# 16 kHz resampled in and out, as the paper's comparison does; codes and
+# waveforms card against CPU within the bars of phase 3
+ENCODEC_BANDWIDTHS = (1.5, 6.0, 24.0)
+ENCODEC_CLIPS, ENCODEC_SR, ENCODEC_SECONDS = 4, 16000, 3
+ENCODEC_TIMED = (6.0, 24.0)
 
 
 def phase(name: str, t0: float, msg: str = "") -> float:
@@ -1111,6 +1130,39 @@ def load_checkpoints(exp: Path, tmp: Path, dev) -> None:
         load_model_state(str(exp / tag))
 
 
+def check_resume(train_flags, ckpt: Path) -> int:
+    """Phase 6: ``ckpt``'s optimizer state is optax's for esc_tpu's
+    ``chain(clip_by_global_norm, adamw(schedule))``, and the train CLI's
+    ``--resume`` takes it on the card with the count and every moment equal
+    bit for bit. Returns the count."""
+    from esc_tpu_torch.checkpoint import load_checkpoint
+    from esc_tpu_torch.cli import train as train_cli
+
+    state = load_checkpoint(str(ckpt))["optimizer_state_dict"]
+    adamw = state.get("1", {})
+    layout = (sorted(state), state.get("0"), sorted(adamw),
+              sorted(adamw.get("0", {})), adamw.get("1"))
+    if layout != (["0", "1"], {}, ["0", "1", "2"], ["count", "mu", "nu"],
+                  {}) or adamw["2"]["count"] != adamw["0"]["count"]:
+        raise RuntimeError(f"{ckpt.name}: not optax's layout: {layout}")
+    trainer = train_cli._trainer(train_cli.parse_args(
+        train_flags + ["--resume"]))
+    trainer.model, _, trainer.val_dl = trainer.load()
+    trainer._restore()
+    want, got = _flat_tree(state), _flat_tree(trainer.opt.state_dict())
+    if want.keys() != got.keys() or not all(
+            np.array_equal(want[k], got[k]) for k in want):
+        raise RuntimeError(f"--resume: the optimizer state of {ckpt.name} "
+                           "did not come back equal")
+    if not all(m.is_cuda for m in trainer.opt.mu + trainer.opt.nu):
+        raise RuntimeError("--resume left moments off the card")
+    count = int(adamw["0"]["count"])
+    print(f"  {ckpt.name}: optimizer state in optax's layout, count {count}"
+          f", {len(want) - 2} arrays; --resume on the card gives it back bit "
+          "for bit", flush=True)
+    return count
+
+
 def check_train(kern, dev, rng, tmp: Path, val_calls) -> dict:
     """Phase 6: the train CLI as a user runs it, a few steps across the
     pretraining switch; then steps on one fixed batch in this process."""
@@ -1123,11 +1175,12 @@ def check_train(kern, dev, rng, tmp: Path, val_calls) -> dict:
     cfg["data"] = train_data(tmp, rng)
     write_yaml(str(tmp / "train.yaml"), cfg)
     out = tmp / "runs"
-    said, cli_s = run_module("esc_tpu_torch.cli.train", [
+    train_flags = [
         "--config_path", str(tmp / "train.yaml"), "--exp_name", "smoke",
         "--num_epochs", str(TRAIN_EPOCHS), "--num_pretraining_epochs", "1",
         "--dropout_rate", "0.5", "--log_steps", "1", "--save_path", str(out),
-        "--seed", str(SEED), "--val_metric", "SISDR"])
+        "--seed", str(SEED), "--val_metric", "SISDR"]
+    said, cli_s = run_module("esc_tpu_torch.cli.train", train_flags)
     logged = _loss_lines(said)
     if len(logged) != TRAIN_EPOCHS or not all(
             np.isfinite(v) for line in logged for v in line.values()):
@@ -1140,6 +1193,8 @@ def check_train(kern, dev, rng, tmp: Path, val_calls) -> dict:
     print(f"  train CLI ({cli_s:.2f} s, process start included): "
           f"{len(logged)} steps, losses {logged}; pretrained, best and "
           f"checkpoint.ckpt load into the port's load_model", flush=True)
+    resumed_count = check_resume(train_flags,
+                                 out / "smoke" / "checkpoint.ckpt")
 
     args = argparse.Namespace(
         exp_name="in_process", lr=FIXED_BATCH_LR, num_epochs=1,
@@ -1186,7 +1241,7 @@ def check_train(kern, dev, rng, tmp: Path, val_calls) -> dict:
           f"fp32, TF32 off)", flush=True)
     summary = {"cli_losses": logged, "cli_s": cli_s, "losses": losses,
                "steps_per_s": rate, "peak_bytes": peak,
-               "eval_launches": launches}
+               "eval_launches": launches, "resumed_count": resumed_count}
     return summary, lambda: trainer.train_step(x, 6, False)
 
 
@@ -1236,9 +1291,10 @@ def check_adv(kern, dev, rng, tmp: Path, val_calls):
     payload = load_checkpoint(str(exp / "checkpoint.ckpt"))
     disc = Discriminator(**cfg["discriminator"])
     disc.load_state_dict(from_jax_params(payload["model_disc_state_dict"]))
-    if payload["optimizer_disc_state_dict"]["count"] != TRAIN_EPOCHS - 1:
+    d_adam = payload["optimizer_disc_state_dict"]["1"]["0"]  # optax's layout
+    if d_adam["count"] != TRAIN_EPOCHS - 1:
         raise RuntimeError("checkpoint.ckpt: the discriminator's optimizer "
-                           f"counted {payload['optimizer_disc_state_dict']}")
+                           f"counted {d_adam['count']}")
     lr = 1e-4
     said2, finetune_s = run_module("esc_tpu_torch.cli.train", common + [
         "--exp_name", "smoke_finetune", "--num_epochs", "1",
@@ -2087,6 +2143,101 @@ def check_dac(kern, dev, rng, tmp: Path) -> dict:
             "peak_bytes": peak}, file_calls, launches
 
 
+# ------------------------------------------------------------ phase 12
+def check_encodec(kern, dev, rng, tmp: Path, smi: str) -> dict:
+    """Phase 12: EnCodec 24 kHz as published (encodec_24khz, random weights
+    from seed 0) through its comparison wrapper at 1.5, 6 and 24 kbps on 4
+    generated clips of 3 s at 16 kHz, resampled in and out, with no kernel
+    launch (esc_tpu's EnCodec runs no Pallas kernel); codes and the same
+    codes' waveforms, card against CPU; a release-format file through
+    ``load_torch_weights``; real-time factor, encode and decode ms and peak
+    memory at 6 and 24 kbps."""
+    from esc_tpu_torch.baselines.encodec import Encodec
+    from esc_tpu_torch.ops.resample import resample
+
+    x = torch.tensor(np.stack([
+        speech_like(rng, ENCODEC_SECONDS * ENCODEC_SR, 110.0 + 45 * i)
+        for i in range(ENCODEC_CLIPS)]))
+    model = Encodec(bandwidth=6.0, seed=SEED, device=dev)
+    cpu = Encodec(bandwidth=6.0, seed=SEED, device="cpu")
+    n_params = model.num_params()
+    model(x, ENCODEC_SR)                        # warm-up, not counted
+    for kbps in ENCODEC_BANDWIDTHS:
+        model.set_target_bandwidth(kbps)
+        recon, _ = counted(kern, f"the EnCodec wrapper at {kbps} kbps",
+                           lambda: model(x, ENCODEC_SR), ran=False)
+        if recon.shape != x.shape or not bool(torch.isfinite(recon).all()):
+            raise RuntimeError(f"EnCodec at {kbps} kbps gave "
+                               f"{tuple(recon.shape)}, finite "
+                               f"{bool(torch.isfinite(recon).all())}")
+
+    # the codec alone, on one 24 kHz input: the stages of a lower bandwidth
+    # are the first of 24 kbps's
+    x24 = resample(x, ENCODEC_SR, model.sample_rate)
+    model.set_target_bandwidth(24.0)
+    cpu.set_target_bandwidth(24.0)
+    ours, theirs = model.encode(x24).cpu(), cpu.encode(x24)
+    mismatch, wave_err = {}, {}
+    for kbps in ENCODEC_BANDWIDTHS:
+        model.set_target_bandwidth(kbps)
+        n_q = model.n_q
+        mismatch[kbps] = float((ours[:, :n_q] != theirs[:, :n_q]).float()
+                               .mean())
+        wave_err[kbps] = float((model.decode(theirs[:, :n_q]).cpu()
+                                - cpu.decode(theirs[:, :n_q])).abs().max())
+        print(f"  EnCodec at {kbps} kbps ({n_q} codebooks): codes card vs "
+              f"CPU {mismatch[kbps]:.2e} off, the CPU's codes decoded on "
+              f"both within {wave_err[kbps]:.2e}", flush=True)
+    if max(mismatch.values()) > CODE_MISMATCH_MAX or \
+            max(wave_err.values()) > WAVE_ATOL:
+        raise RuntimeError(f"EnCodec card vs CPU: codes {mismatch} off "
+                           f"(bar {CODE_MISMATCH_MAX}), waveforms "
+                           f"{wave_err} (bar {WAVE_ATOL})")
+
+    # a release-format file: {"best_state": ...} with the EMA buffers
+    sd = {k: v.cpu() for k, v in model.state_dict().items()}
+    for q in range(model.module.n_q):
+        pre = f"quantizer.vq.layers.{q}._codebook."
+        sd[pre + "inited"] = torch.ones(1)
+        sd[pre + "cluster_size"] = torch.ones(model.module.bins)
+        sd[pre + "embed_avg"] = sd[pre + "embed"].clone()
+    torch.save({"best_state": sd}, tmp / "encodec_24khz.th")
+    loaded = Encodec(bandwidth=24.0, seed=SEED + 1, device=dev)
+    loaded.load_torch_weights(str(tmp / "encodec_24khz.th"))
+    model.set_target_bandwidth(24.0)
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                    deterministic=True, allow_tf32=False):
+        same = torch.equal(loaded.encode(x24), model.encode(x24))
+    if not same:
+        raise RuntimeError("the release-format file gave other codes")
+    print(f"  a release-format file ({len(sd)} keys, {3 * model.module.n_q}"
+          " of them EMA buffers) loads strictly: the same codes", flush=True)
+
+    timing = {}
+    x24d = x24.to(dev)
+    audio_s = ENCODEC_CLIPS * ENCODEC_SECONDS
+    for kbps in ENCODEC_TIMED:
+        model.set_target_bandwidth(kbps)
+        codes = model.encode(x24d)
+        enc_ms = call_ms(lambda: model.encode(x24d), reps=10)
+        dec_ms = call_ms(lambda: model.decode(codes), reps=10)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        rt_ms = call_ms(lambda: model(x, ENCODEC_SR), reps=10)
+        peak = torch.cuda.max_memory_allocated()
+        timing[kbps] = {"encode_ms": enc_ms, "decode_ms": dec_ms,
+                        "roundtrip_ms": rt_ms, "rtf": audio_s * 1e3 / rt_ms,
+                        "peak_bytes": peak}
+        print(f"encodec: {kbps} kbps, {ENCODEC_CLIPS} x {ENCODEC_SECONDS} s"
+              f" at {ENCODEC_SR} Hz: roundtrip {rt_ms:.2f} ms (resampling "
+              f"in and out), real-time factor {audio_s * 1e3 / rt_ms:.1f}; "
+              f"encode {enc_ms:.2f} ms, decode {dec_ms:.2f} ms at 24 kHz; "
+              f"peak memory {peak / 2 ** 30:.3f} GiB (fp32, TF32 off; "
+              f"{smi})", flush=True)
+    return {"params": n_params, "mismatch": mismatch, "wave_err": wave_err,
+            "timing": timing}
+
+
 def _flat_tree(tree: dict, prefix: str = "") -> dict:
     out = {}
     for k, v in tree.items():
@@ -2410,6 +2561,11 @@ def main() -> int:
                                                       Path(tmp))
     t0 = phase("11 dac", t0, "the DAC's forward, compress, CLI, trainer "
                "and trace ok")
+    with tempfile.TemporaryDirectory() as tmp:
+        encodec = check_encodec(KERNELS, dev, rng, Path(tmp), smi)
+    t0 = phase("12 encodec", t0, "EnCodec 24 kHz: the wrapper at "
+               f"{', '.join(map(str, ENCODEC_BANDWIDTHS))} kbps, card vs "
+               "CPU, a release-format file ok")
 
     for what, fn in (("one roundtrip", lambda: model.roundtrip(
             x, num_streams=6)), ("one training step (phase 6)", train_step)):
@@ -2471,7 +2627,7 @@ def main() -> int:
             **{f"stream_{k}": v for k, v in serving.items()}},
         "cli": cli_run, "eval": evaluation, "train": training,
         "adv": adversarial, "dp": data_parallel, "ablation": ablations,
-        "multicard": multicard, "dac": dac}}),
+        "multicard": multicard, "dac": dac, "encodec": encodec}}),
         flush=True)
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {

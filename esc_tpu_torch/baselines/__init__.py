@@ -1,2 +1,3 @@
 """Baseline codecs the paper compares ESC with (port of
-``esc_tpu/baselines``): the Descript Audio Codec (:mod:`.dac`)."""
+``esc_tpu/baselines``): the Descript Audio Codec (:mod:`.dac`) and EnCodec
+24 kHz (:mod:`.encodec`)."""

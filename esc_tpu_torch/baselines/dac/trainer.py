@@ -18,8 +18,8 @@ loss on the reconstruction of that forward, detached, and its update. The
 validation runs the eval forward, and so the argmin kernel on the card.
 Several ranks (:class:`esc_tpu_torch.parallel.DataParallel`) split each
 global batch by rows and average their gradients; rank 0 validates and
-writes. Checkpoints hold the flax parameter trees of both networks, which
-the JAX package loads, and the port's own optimizer states.
+writes. Checkpoints hold the flax parameter trees of both networks and
+optax's states of both optimizers, which the JAX package loads.
 """
 
 from __future__ import annotations
@@ -82,16 +82,16 @@ class DACTrainer:
         sched = make_schedule(
             "exponential_decay", aw.get("lr", 1e-4),
             gamma=cfg.get("ExponentialLR", {}).get("gamma", 0.999996))
-        self.opt = AdamW(self.model.module.named_parameters(), sched,
-                         clip_norm=GEN_CLIP, betas=betas)
+        self.opt = AdamW(self.model.module, sched, clip_norm=GEN_CLIP,
+                         betas=betas)
         if self.adversarial:
             disc_cfg = {k: ([tuple(b) for b in v] if k == "bands" else v)
                         for k, v in cfg.get("Discriminator", {}).items()}
             self.disc = init_discriminator(Discriminator(**disc_cfg),
                                            cfg.get("seed", 53) + 1)
             self.disc.to(self.device)
-            self.opt_disc = AdamW(self.disc.named_parameters(), sched,
-                                  clip_norm=DISC_CLIP, betas=betas)
+            self.opt_disc = AdamW(self.disc, sched, clip_norm=DISC_CLIP,
+                                  betas=betas)
         n = self.dp.num_devices
         self.train_dl = make_dataloader(
             cfg["data_path"] + "/train", cfg.get("batch_size", 16) * n, True,
@@ -255,9 +255,9 @@ class DACTrainer:
                         extra=extra)
 
     def _resume(self) -> int:
-        """The whole state from ``latest.ckpt`` (either package's: an
-        optimizer state in the JAX package's layout is left out, and its
-        moments start afresh); returns its iteration, 0 without one."""
+        """The whole state from ``latest.ckpt``, either package's, both
+        optimizers' moments and counts included; returns its iteration, 0
+        without one."""
         path = os.path.join(self.cfg.get("save_path", "./dac_output"),
                             "latest.ckpt")
         if not os.path.exists(path):
@@ -273,7 +273,7 @@ class DACTrainer:
             pairs.append((self.opt_disc,
                           payload.get("optimizer_disc_state_dict")))
         for opt, state in pairs:
-            if state and "mu" in state and "nu" in state:
+            if state:
                 opt.load_state_dict(state)
         self.best_perf = float(payload.get("best_perf", -1.0))
         if payload.get("rng_state"):

@@ -253,9 +253,9 @@ def save_checkpoint(save_path: str, tag: str, *, step: int,
     parameter tree (:func:`esc_tpu_torch.convert.to_jax_params`), or the
     flax variables of a codec with BatchNorm statistics
     (:func:`esc_tpu_torch.convert.to_jax_variables`), the optimizer state
-    the port's own; ``extra`` adds keys, as the adversarial
-    trainer's ``model_disc_state_dict`` (a flax parameter tree) and
-    ``optimizer_disc_state_dict``. The file is written under a name of its
+    optax's (:meth:`esc_tpu_torch.train.optim.AdamW.state_dict`); ``extra``
+    adds keys, as the adversarial trainer's ``model_disc_state_dict`` (a
+    flax parameter tree) and ``optimizer_disc_state_dict``. The file is written under a name of its
     own in the same directory and moved into place, so that a reader never
     sees half of it and two writers never share a temporary file."""
     os.makedirs(save_path, exist_ok=True)

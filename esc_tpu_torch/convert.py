@@ -64,7 +64,7 @@ port trains is saved in the layout the JAX package loads.
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -196,7 +196,9 @@ def to_jax_variables(module: nn.Module) -> Dict[str, Any]:
     return variables
 
 
-def to_jax_params(module: nn.Module) -> Dict[str, Any]:
+def to_jax_params(module: nn.Module,
+                  values: Optional[Mapping[str, torch.Tensor]] = None
+                  ) -> Dict[str, Any]:
     """The port's module -> flax parameter tree (nested dicts of float32
     numpy arrays), the inverse of :func:`from_jax_params`: Linear weights
     become Dense kernels ``(in, out)``, conv weights HWIO / WIO kernels
@@ -204,12 +206,18 @@ def to_jax_params(module: nn.Module) -> Dict[str, Any]:
     weights ``scale``, PReLU slopes stay ``weight``, weight-normalised
     convolutions ``Conv_0/kernel``, ``Conv_0/bias`` and
     ``wn/Conv_0/kernel/scale`` (the DAC's under the names its layers give,
-    ``flax_names``), snake alphas ``(1, 1, C)``."""
+    ``flax_names``), snake alphas ``(1, 1, C)``.
+
+    ``values``, by parameter name (``module.named_parameters()``), replaces
+    each parameter with a tensor of its shape: an optimizer's moments take
+    their parameters' places in the tree, as optax keeps them."""
     tree: Dict[str, Any] = {}
     for name, sub in module.named_modules():
         weight_norm = "weight_v" in sub._parameters
         wrapper, layer = getattr(sub, "flax_names", ("wn", _WN_INNER))
         for leaf, p in sub.named_parameters(recurse=False):
+            if values is not None:
+                p = values[f"{name}.{leaf}" if name else leaf]
             v = p.detach().cpu().float().numpy()
             mods = name.split(".") if name else []
             if weight_norm:

@@ -11,16 +11,25 @@ optax's arithmetic where it differs from ``torch.optim``:
 - the schedule is read at the update count before the step, and the count
   starts again at 0 when the optimizer is renewed.
 
+Its state is optax's for that chain, as ``esc_tpu``'s checkpoints hold it:
+a moment for every parameter (optax's cover the whole parameter tree,
+frozen codebooks included), under the names of the flax parameter tree, so
+that either package resumes from the other's ``.ckpt``.
+
 Schedules compute in float32, as the JAX package's do.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Iterable, Optional, Tuple
+from typing import (Any, Callable, Dict, Iterable, Mapping, Optional,
+                    Tuple, Union)
 
 import numpy as np
 import torch
+import torch.nn as nn
+
+from ..convert import from_jax_params, to_jax_params
 
 __all__ = ["GAMMA", "SCHEDULES", "make_schedule", "AdamW"]
 
@@ -72,18 +81,26 @@ class AdamW:
     """AdamW over named parameters, with an optional global-norm clip of
     the gradients before the step (scripts/trainer_no_adv.py:116-117).
 
-    ``schedule`` (:func:`make_schedule`) gives the learning rate at the
-    update count; ``betas`` are torch's defaults unless given (the DAC
-    trainer's are (0.8, 0.99)). The state is the count and both moments, by
-    parameter name (:meth:`state_dict`); :meth:`renew` starts them again.
+    ``params`` is a module, or ``(name, tensor)`` pairs; ``learning_rate``
+    a schedule (:func:`make_schedule`) read at the update count, or a
+    constant, as optax takes either; ``betas`` are torch's defaults unless
+    given (the DAC trainer's are (0.8, 0.99)). The state is the count and
+    both moments (:meth:`state_dict`); :meth:`renew` starts them again.
     """
 
-    def __init__(self, named_params: Iterable[Tuple[str, torch.Tensor]],
-                 schedule: Callable[[int], float],
+    def __init__(self, params: Union[nn.Module,
+                                     Iterable[Tuple[str, torch.Tensor]]],
+                 learning_rate: Union[float, Callable[[int], float]],
                  clip_norm: Optional[float] = None,
                  betas: Tuple[float, float] = (B1, B2)):
-        self.names, self.params = map(list, zip(*named_params))
-        self.schedule, self.clip_norm = schedule, clip_norm
+        self.module = params if isinstance(params, nn.Module) else None
+        named = params.named_parameters() if self.module is not None \
+            else params
+        self.names, self.params = map(list, zip(*named))
+        self.scheduled = callable(learning_rate)
+        self.schedule = learning_rate if self.scheduled else (
+            lambda step, lr=float(_f32(learning_rate)): lr)
+        self.clip_norm = clip_norm
         self.b1, self.b2 = betas
         self.renew()
 
@@ -133,20 +150,47 @@ class AdamW:
         for p in self.params:
             p.grad = None
 
-    def state_dict(self) -> Dict:
-        return {"count": self.count,
-                "mu": {n: m.detach().cpu().numpy()
-                       for n, m in zip(self.names, self.mu)},
-                "nu": {n: v.detach().cpu().numpy()
-                       for n, v in zip(self.names, self.nu)}}
+    def _tree(self, tensors) -> Dict[str, Any]:
+        """Tensors in the parameters' places: the module's flax parameter
+        tree (:func:`esc_tpu_torch.convert.to_jax_params`), else a dict by
+        name, as optax keeps a moment for a tree of parameters."""
+        named = dict(zip(self.names, tensors))
+        if self.module is not None:
+            return to_jax_params(self.module, named)
+        return {n: t.detach().cpu().numpy() for n, t in named.items()}
 
-    def load_state_dict(self, state: Dict) -> None:
-        if set(state["mu"]) != set(self.names) or \
-                set(state["nu"]) != set(self.names):
-            raise KeyError("optimizer state does not hold these parameters")
-        self.count = int(state["count"])
-        for i, n in enumerate(self.names):
-            self.mu[i] = torch.as_tensor(np.array(state["mu"][n]),
-                                         device=self.params[i].device)
-            self.nu[i] = torch.as_tensor(np.array(state["nu"][n]),
-                                         device=self.params[i].device)
+    def state_dict(self) -> Dict[str, Any]:
+        """optax's state of ``esc_tpu``'s ``chain(clip_by_global_norm,
+        adamw)`` (``esc_tpu/train/optim.py:91-94``), as
+        ``flax.serialization.to_state_dict`` lays it out: ``{"0": {}, "1":
+        adamw}`` with the clip, ``adamw`` alone without; ``adamw`` is
+        ``{"0": {"count", "mu", "nu"}, "1": {}, "2": {"count"}}``, the last
+        ``{}`` for a constant learning rate. Counts are int32."""
+        count = np.asarray(self.count, np.int32)
+        adamw = {"0": {"count": count, "mu": self._tree(self.mu),
+                       "nu": self._tree(self.nu)},
+                 "1": {}, "2": {"count": count} if self.scheduled else {}}
+        return adamw if self.clip_norm is None else {"0": {}, "1": adamw}
+
+    def load_state_dict(self, state: Mapping[str, Any]) -> None:
+        """Take a :meth:`state_dict` of either package, or the port's
+        earlier ``{"count", "mu", "nu"}`` by parameter name. A moment
+        missing for a parameter, or held for one this optimizer lacks,
+        raises a ``KeyError`` naming it."""
+        if "mu" in state:
+            count, mu, nu = state["count"], state["mu"], state["nu"]
+        else:
+            adamw = state if self.clip_norm is None else state["1"]
+            adam = adamw["0"]
+            count, mu, nu = adam["count"], adam["mu"], adam["nu"]
+            if self.module is not None:
+                mu, nu = from_jax_params(mu), from_jax_params(nu)
+            if self.scheduled and int(adamw["2"]["count"]) != int(count):
+                raise ValueError("the schedule's count and Adam's differ")
+        for moment in (mu, nu):
+            for name in set(self.names) ^ set(moment):
+                raise KeyError(f"optimizer state: {name}")
+        self.count = int(count)
+        for i, (n, p) in enumerate(zip(self.names, self.params)):
+            self.mu[i] = torch.as_tensor(np.array(mu[n]), device=p.device)
+            self.nu[i] = torch.as_tensor(np.array(nu[n]), device=p.device)

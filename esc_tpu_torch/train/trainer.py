@@ -133,8 +133,7 @@ class Trainer:
         self.schedule = make_schedule(args.scheduler_type, args.lr,
                                       total_steps=args.max_train_steps,
                                       warmup_steps=args.num_warmup_steps)
-        self.opt = AdamW(model.module.named_parameters(), self.schedule,
-                         clip_norm=0.5)
+        self.opt = AdamW(model.module, self.schedule, clip_norm=0.5)
         print0(f"<<<<Experimental Setup: {args.exp_name}>>>>")
         print0(f"   Devices: {n} ({self.device.type})  GlobalBatch: Train "
                f"{data['train_bs_per_device'] * n} Val "
@@ -335,8 +334,8 @@ class Trainer:
 
     def _load_resume(self, path: str) -> None:
         """Weights from a ``.pth`` state dict, or the whole state from a
-        ``.ckpt``; an optimizer state in another layout (the JAX
-        package's) is left out, and the run starts with fresh moments."""
+        ``.ckpt`` of either package, the optimizer's moments and count
+        included (:meth:`AdamW.load_state_dict`)."""
         if path.endswith(".pth"):
             ckp = torch.load(path, map_location="cpu", weights_only=True)
             self.model.load_state_dict(ckp.get("model_state_dict", ckp))
@@ -345,10 +344,9 @@ class Trainer:
         payload = load_checkpoint(path)
         self.model.load_state_dict(from_jax_params(
             payload["model_state_dict"]))
-        opt_state = payload.get("optimizer_state_dict") or {}
-        restored = "mu" in opt_state and "nu" in opt_state
+        restored = bool(payload.get("optimizer_state_dict"))
         if restored:
-            self.opt.load_state_dict(opt_state)
+            self.opt.load_state_dict(payload["optimizer_state_dict"])
         if payload.get("rng_state"):
             self.rng.bit_generator.state = json.loads(payload["rng_state"])
         self.start_step = int(payload.get("step", 0)) + 1

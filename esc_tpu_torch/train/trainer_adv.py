@@ -17,10 +17,10 @@ discriminator and its optimizer are left as they are; the renewal at the
 switch renews the generator's optimizer only. ``--pretrain_ckp`` is the
 post-adversarial finetuning: the generator at lr/10 (its schedule divided
 by 10), the discriminator at lr, the step count and best score restarted,
-both optimizers' moments kept where the file has them in the port's
-layout, and one evaluation before the first step. Checkpoints add
-``model_disc_state_dict`` (a flax parameter tree, which ``esc_tpu``
-loads) and ``optimizer_disc_state_dict`` (the port's own).
+both optimizers' moments kept where the file has them, and one evaluation
+before the first step. Checkpoints add ``model_disc_state_dict`` (a flax
+parameter tree) and ``optimizer_disc_state_dict`` (optax's state), which
+``esc_tpu`` loads.
 """
 
 from __future__ import annotations
@@ -34,7 +34,7 @@ from ..convert import from_jax_params, to_jax_params
 from ..models.discriminator import Discriminator, init_discriminator
 from ..modules.gan_loss import discriminator_loss, generator_loss
 from ..modules.losses import complex_stft_loss, mel_spectrogram_loss
-from .optim import AdamW, make_schedule
+from .optim import AdamW
 from .trainer import Trainer, print0, reproducible
 
 __all__ = ["TrainerAdv"]
@@ -58,16 +58,14 @@ class TrainerAdv(Trainer):
             print0(f"   Post-adversarial finetuning: generator LR "
                    f"{args.lr} (schedule / 10), discriminator LR "
                    f"{args.lr_disc}")
-        self.opt = AdamW(model.module.named_parameters(), self.schedule,
-                         clip_norm=GEN_CLIP)
+        self.opt = AdamW(model.module, self.schedule, clip_norm=GEN_CLIP)
         self.disc = Discriminator(**cfg.get("discriminator", {}))
         init_discriminator(self.disc, getattr(args, "seed", 53) + 1)
         self.disc.to(self.device)
         n_disc = sum(p.numel() for p in self.disc.parameters())
         print0(f"   Discriminator #Parameters: {n_disc / 1e6:.2f}M")
-        self.opt_disc = AdamW(self.disc.named_parameters(),
-                              make_schedule("constant", args.lr_disc),
-                              clip_norm=DISC_CLIP)
+        # a constant rate, as esc_tpu's (esc_tpu/train/trainer_adv.py:68)
+        self.opt_disc = AdamW(self.disc, args.lr_disc, clip_norm=DISC_CLIP)
         self.loss_weights.update(gen=float(cfg["loss"]["gen_weight"]),
                                  feat=float(cfg["loss"]["feat_weight"]))
         return model, train_dl, val_dl
@@ -150,11 +148,11 @@ class TrainerAdv(Trainer):
                 "optimizer_disc_state_dict": self.opt_disc.state_dict()}
 
     def _restore_extra(self, payload: Dict) -> None:
-        """The discriminator's weights from either package's checkpoint;
-        its optimizer state where the file holds the port's."""
+        """The discriminator's weights and optimizer state from either
+        package's checkpoint, where the file holds them."""
         tree = payload.get("model_disc_state_dict")
         if tree:
             self.disc.load_state_dict(from_jax_params(tree))
-        d_opt = payload.get("optimizer_disc_state_dict") or {}
-        if "mu" in d_opt and "nu" in d_opt:
-            self.opt_disc.load_state_dict(d_opt)
+        if payload.get("optimizer_disc_state_dict"):
+            self.opt_disc.load_state_dict(
+                payload["optimizer_disc_state_dict"])

@@ -227,7 +227,10 @@ def test_pretrain_ckp_learning_rates_match_jax(wav_folder, tmp_path,
     first.train()
     ckp = str(tmp_path / "a" / "adv_run" / "checkpoint.ckpt")
     saved = load_checkpoint(ckp)
-    assert saved["optimizer_disc_state_dict"]["count"] == 2
+    # optax's state of chain(clip, adamw) at a constant rate: no schedule
+    # count (esc_tpu/train/trainer_adv.py:68)
+    assert saved["optimizer_disc_state_dict"]["1"]["0"]["count"] == 2
+    assert saved["optimizer_disc_state_dict"]["1"]["2"] == {}
 
     evals = []
     monkeypatch.setattr(port_trainer_adv.TrainerAdv, "evaluate",
@@ -255,12 +258,15 @@ def test_pretrain_ckp_learning_rates_match_jax(wav_folder, tmp_path,
 def test_checkpoints_carry_the_discriminator_across_packages(
         jax_models, wav_folder, tmp_path):
     """A checkpoint esc_tpu's TrainerAdv writes gives the port its
-    discriminator (and generator) weights exactly; a port one restores
-    into esc_tpu's discriminator parameters (``restore_into`` against the
-    flax tree) with the port's weights exactly. (That equal weights give
-    equal feature maps is tests/test_torch_port_adv.py's.)"""
+    discriminator (and generator) weights exactly, and both optimizers'
+    counts and moments (two optax updates on random gradients) bit for
+    bit; a port one restores into esc_tpu's discriminator parameters and
+    both optimizer states (``restore_into`` against the flax tree and the
+    optimizers' ``init``) with the port's values exactly. (That equal
+    weights give equal feature maps is tests/test_torch_port_adv.py's.)"""
     from esc_tpu.checkpoint import restore_into
     from esc_tpu.train.optim import make_optimizer
+    from esc_tpu.train.optim import make_schedule as jax_make_schedule
     from esc_tpu.train.trainer_adv import TrainerAdv as JaxTrainerAdv
     from esc_tpu.utils import dict2namespace
 
@@ -268,19 +274,37 @@ def test_checkpoints_carry_the_discriminator_across_packages(
     jt = JaxTrainerAdv(dict2namespace(_config(wav_folder)),
                        _args(tmp_path / "jax"), devices=jax.devices()[:1])
     # the state its train() holds; its load() would build the same models
+    # and optimizers (esc_tpu/train/trainer_adv.py:52,68)
     jt.model, jt.best_perf = ref, float("-inf")
     params = ref.variables["params"]
-    tx, tx_disc = make_optimizer(4e-4, clip_norm=1e3), \
-        make_optimizer(4e-4, clip_norm=10.0)
-    jt.save_ckp((params, tx.init(params), d_params, tx_disc.init(d_params)),
-                4, tag="checkpoint.ckpt")
+    tx = make_optimizer(jax_make_schedule("constant", 4e-4), clip_norm=1e3)
+    tx_disc = make_optimizer(4e-4, clip_norm=10.0)
+    r = np.random.default_rng(8)
+    states = []
+    for t, p in ((tx, params), (tx_disc, d_params)):
+        state = t.init(p)
+        for _ in range(2):
+            g = jax.tree.map(lambda a: jnp.asarray(r.standard_normal(
+                a.shape).astype(np.float32)), p)
+            _, state = t.update(g, state, p)
+        states.append(state)
+    jt.save_ckp((params, states[0], d_params, states[1]), 4,
+                tag="checkpoint.ckpt")
     jax_ckp = str(tmp_path / "jax" / "adv_run" / "checkpoint.ckpt")
 
     pt = port_trainer_adv.TrainerAdv(_config(wav_folder),
                                      _args(tmp_path / "port"))
     pt.model, _, pt.val_dl = pt.load()
     pt._load_resume(jax_ckp)
-    assert pt.start_step == 5 and pt.opt_disc.count == 0
+    assert pt.start_step == 5
+    assert pt.opt.count == pt.opt_disc.count == 2
+    for opt, state in ((pt.opt, states[0]), (pt.opt_disc, states[1])):
+        adam = state[1][0]
+        for ours, tree in ((opt.mu, adam.mu), (opt.nu, adam.nu)):
+            theirs = from_jax_params(jax.tree.map(np.asarray, tree))
+            for name, m in zip(opt.names, ours):
+                np.testing.assert_array_equal(m.numpy(),
+                                              theirs[name].numpy(), name)
     want = _flat(jax.tree.map(np.asarray, d_params))
     got = _flat(to_jax_params(pt.disc))
     assert set(got) == set(want)
@@ -293,14 +317,26 @@ def test_checkpoints_carry_the_discriminator_across_packages(
     init_discriminator(pt.disc, 99)          # weights unlike the JAX ones
     pt.save_ckp(0, tag="checkpoint.ckpt")
     port_ckp = str(tmp_path / "port" / "adv_run" / "checkpoint.ckpt")
-    restored = restore_into(port_ckp, params, extra_targets={
-        "model_disc_state_dict": d_params})
+    restored = restore_into(
+        port_ckp, params, optimizer_state_target=tx.init(params),
+        extra_targets={"model_disc_state_dict": d_params,
+                       "optimizer_disc_state_dict": tx_disc.init(d_params)})
     loaded = _flat(jax.tree.map(np.asarray,
                                 restored["model_disc_state_dict"]))
     ours = _flat(to_jax_params(pt.disc))
     assert set(loaded) == set(ours)
     for k, v in loaded.items():
         np.testing.assert_array_equal(v, ours[k], err_msg=k)
+    for key, opt in (("optimizer_state_dict", pt.opt),
+                     ("optimizer_disc_state_dict", pt.opt_disc)):
+        adam = restored[key][1][0]
+        assert int(adam.count) == opt.count == 2
+        loaded = _flat(jax.tree.map(np.asarray, adam.nu))
+        ours = _flat(to_jax_params(opt.module, dict(zip(opt.names,
+                                                        opt.nu))))
+        assert set(loaded) == set(ours)
+        for k, v in loaded.items():
+            np.testing.assert_array_equal(v, ours[k], err_msg=k)
 
 
 def test_resume_restores_the_discriminator(wav_folder, tmp_path):

@@ -137,6 +137,7 @@ def test_importing_the_cli_loads_no_jax():
             "esc_tpu_torch.parallel, esc_tpu_torch.models.discriminator, "
             "esc_tpu_torch.baselines.dac.trainer, "
             "esc_tpu_torch.baselines.dac.__main__, "
+            "esc_tpu_torch.baselines.encodec, "
             "esc_tpu_torch.utils.profiling; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{_FORBIDDEN!r}); print(bad); "
@@ -158,6 +159,11 @@ def test_entry_points_without_device_raise_on_a_cpu_host(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ESC(device="cuda", **TINY)
     assert ESC(device="cpu", **TINY).device == torch.device("cpu")
+    from esc_tpu_torch.baselines.encodec import Encodec
+    small = dict(dimension=8, n_filters=4, ratios=(2, 2), n_q=4, bins=16)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Encodec(**small)
+    assert Encodec(device="cpu", **small).device == torch.device("cpu")
 
 
 # ------------------------------------- chip_smoke's accounting, on the CPU

@@ -247,7 +247,8 @@ def test_trainer_validates_tags_and_resumes(tmp_path, adversarial):
         assert (out / f"{tag}.ckpt").exists(), tag
     payload = load_checkpoint(str(out / "latest.ckpt"))
     assert payload["step"] == 2
-    assert payload["optimizer_state_dict"]["count"] == 2
+    adamw = payload["optimizer_state_dict"]["1"]     # optax's layout
+    assert adamw["0"]["count"] == adamw["2"]["count"] == 2
     assert isinstance(payload["rng_state"], str)
     assert np.isfinite(tr.best_perf)            # the SI-SDR fallback
     assert ("model_disc_state_dict" in payload) is adversarial

@@ -160,7 +160,10 @@ def test_checkpoints_carry_the_jax_packages_layout(runs):
     assert payload["scheduler_state_dict"] == {"type": "constant",
                                                "step": 11}
     assert isinstance(payload["rng_state"], str)
-    assert payload["optimizer_state_dict"]["count"] == 8
+    # optax's state of chain(clip, adamw(schedule)): Adam's count and the
+    # schedule's, counted from the renewal
+    adamw = payload["optimizer_state_dict"]["1"]
+    assert adamw["0"]["count"] == adamw["2"]["count"] == 8
     assert np.isfinite(payload["best_perf"])
     assert load_checkpoint(str(exp / "pretrained.ckpt"))["step"] == 3
 
