@@ -45,7 +45,12 @@ Phases, each ending with one line that carries its seconds:
             moments bit for bit; then 20 steps in this process on one fixed
             batch: the loss
             falls, no kernel launches, and both kernels launch in the
-            evaluation; steps per second and peak memory
+            evaluation; steps per second and peak memory; then, from one
+            copy of the state, make_multi_step over K = 10 batches
+            (num_streams by quantization_dropout from the seed) against
+            the same 10 train_steps one by one, and K = 2 with the freeze:
+            losses, parameters, both moments and the count bit for bit, no
+            kernel launch, steps per second of both in turns
 7. adv      python -m esc_tpu_torch.cli.train --adv_training as a
             subprocess for 4 steps of configs/9kbps_esc_base_adv.yaml (one
             freeze step, the renewal, two evaluations): finite logged
@@ -79,7 +84,12 @@ Phases, each ending with one line that carries its seconds:
             one batch in this process (steps per second, peak memory, no
             kernel launch; both kernels in the evaluation), and the train
             CLI's refusal of the conv backbone; a rvq+conv .ckpt written
-            with its BatchNorm statistics and read back, the same codes
+            with its BatchNorm statistics and read back, the same codes;
+            the standalone ResidualVectorQuantize at esc_tpu's defaults
+            (1,536 wide, 600 rows a search) at num_streams 1, 3 and 6:
+            argmin launches num_streams per encode and 6 per eval forward,
+            codes against the plain argmin, the same codes decoded card
+            against CPU, encode call ms
 10. multicard ESC-Base as published (configs/9kbps_esc_base.yaml, random
             weights from seed 0) over every visible card (Replicas):
             encode_chunked_dp / decode_chunked_dp of a 25 s file in 10 s
@@ -199,6 +209,8 @@ EVAL_MEL_RTOL, EVAL_SISDR_RTOL = 1e-3, 1e-2
 # batch of 2 an epoch: epoch 1 is the freeze step
 TRAIN_SAMPLES, TRAIN_BATCH, TRAIN_EPOCHS = 32000, 2, 4
 FIXED_BATCH_STEPS, FIXED_BATCH_LR = 20, 3e-4
+# make_multi_step against as many single steps, from one copy of the state
+MULTI_STEPS = {False: 10, True: 2}        # K by the freeze flag
 # phase 7: the adversarial config's own batch, 9 clips of 3 s
 ADV_STEPS, ADV_CLIP = 10, 47920
 ADV_TIMED_STEPS = 5        # steps per turn of the determinism timing
@@ -219,6 +231,11 @@ ABLATION_YAMLS = {name: ROOT / "configs" / "ablations" /
                   f"9kbps_{name.replace('+', '_')}.yaml"
                   for name in ("rvq+swinT", "csvq+conv", "rvq+conv")}
 ABLATION_CLI_SECONDS = 10
+# the standalone residual VQ at esc_tpu's defaults: 6 x 64 x overlap 4 =
+# 1,536 wide, projected to 8, 6 codebooks of 1024 (one group of rvq+swinT's
+# bottleneck is as wide: 6 x 384 x overlap 2 / 3 groups); 4 latents of 600
+# frames give 600 rows a search, as that bottleneck has at 4 x 3 s
+RVQ_BATCH, RVQ_FRAMES = 4, 600
 ABLATION_STEPS = 10
 # phase 10: ESC-Base as published, a 25 s file in 10 s chunks with 1 s
 # margins over every visible card
@@ -1231,6 +1248,7 @@ def check_train(kern, dev, rng, tmp: Path, val_calls) -> dict:
     if launches != want:
         raise RuntimeError(f"evaluation launches {launches}, predicted "
                            f"{want}")
+    multi = check_multi_step(kern, trainer)
     rate = FIXED_BATCH_STEPS / steps_s
     print(f"  {FIXED_BATCH_STEPS} steps on one batch of {TRAIN_BATCH} x "
           f"{(TRAIN_SAMPLES - 80) / 16000:.3f} s at lr {FIXED_BATCH_LR}: "
@@ -1241,8 +1259,95 @@ def check_train(kern, dev, rng, tmp: Path, val_calls) -> dict:
           f"fp32, TF32 off)", flush=True)
     summary = {"cli_losses": logged, "cli_s": cli_s, "losses": losses,
                "steps_per_s": rate, "peak_bytes": peak,
-               "eval_launches": launches, "resumed_count": resumed_count}
+               "eval_launches": launches, "resumed_count": resumed_count,
+               "multi_step": multi}
     return summary, lambda: trainer.train_step(x, 6, False)
+
+
+def _step_state(trainer) -> list:
+    """Every tensor a training step changes: the parameters and both
+    moments (the count is kept apart)."""
+    return [*trainer.model.module.parameters(), *trainer.opt.mu,
+            *trainer.opt.nu]
+
+
+def check_multi_step(kern, trainer) -> dict:
+    """Phase 6's view of ``train/trainer.py::make_multi_step``: from one
+    copy of the trainer's state, K steps by one multi-step call and K
+    single ``train_step``s, in turns (single, multi, multi, single), on K
+    batches with stream counts drawn by ``quantization_dropout`` from the
+    seed; every run's losses, parameters, moments and count must equal the
+    first's bit for bit, and no kernel may launch. Returns steps per
+    second of each, by the freeze flag."""
+    from esc_tpu_torch.train.data import quantization_dropout
+    from esc_tpu_torch.train.trainer import make_multi_step
+
+    rng = np.random.default_rng(SEED)
+    saved = [t.detach().clone() for t in _step_state(trainer)]
+    count = trainer.opt.count
+    out = {}
+    for freeze, k in MULTI_STEPS.items():
+        xs = np.stack([np.stack([speech_like(rng, TRAIN_SAMPLES - 80,
+                                             120.0 + 40 * i + 10 * j)
+                                 for j in range(TRAIN_BATCH)])
+                       for i in range(k)])
+        streams = [quantization_dropout(0.5, ESC_BASE["max_streams"], rng)
+                   for _ in range(k)]
+        multi = make_multi_step(trainer.train_step, freeze)
+
+        def single():
+            auxs = [trainer.train_step(x, s, freeze)
+                    for x, s in zip(xs, streams)]
+            return {n: torch.stack([a[n] for a in auxs]) for n in auxs[0]}
+
+        runs = {"single": single, "multi": lambda: multi(xs, streams)}
+        first, rates = None, {"single": [], "multi": []}
+        for name in ("single", "multi", "multi", "single"):
+            with torch.no_grad():
+                for t, v in zip(_step_state(trainer), saved):
+                    t.copy_(v)
+            trainer.opt.count = count
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            losses, _ = counted(kern, f"{k} steps ({name}, freeze {freeze})",
+                                runs[name], ran=False)
+            rates[name].append(k / (time.perf_counter() - start))
+            result = (losses, [t.detach().clone()
+                               for t in _step_state(trainer)],
+                      trainer.opt.count)
+            if first is None:
+                first = result
+                continue
+            same = (result[2] == first[2] and set(result[0]) == set(first[0])
+                    and all(torch.equal(result[0][n], first[0][n])
+                            for n in first[0])
+                    and all(torch.equal(a, b)
+                            for a, b in zip(result[1], first[1])))
+            if not same:
+                differ = sum(not torch.equal(a, b)
+                             for a, b in zip(result[1], first[1]))
+                raise RuntimeError(
+                    f"{k} steps ({name}, freeze {freeze}) differ from the "
+                    f"first run: {differ} of {len(first[1])} state arrays, "
+                    f"losses {result[0]} against {first[0]}")
+        if first[2] != count + k:
+            raise RuntimeError(f"count {first[2]} after {k} steps from "
+                               f"{count}")
+        print(f"  make_multi_step over K = {k} batches of {TRAIN_BATCH} x "
+              f"{(TRAIN_SAMPLES - 80) / 16000:.3f} s, freeze {freeze}, "
+              f"num_streams {streams}: losses, {len(first[1])} state arrays "
+              f"and the count equal to {k} single train_steps bit for bit, "
+              f"no kernel launch; steps per second, in turns: single "
+              f"{[round(r, 3) for r in rates['single']]}, multi "
+              f"{[round(r, 3) for r in rates['multi']]}", flush=True)
+        out[f"freeze={freeze}"] = {
+            "K": k, "num_streams": streams, "steps_per_s": rates,
+            "loss": first[0]["loss"].tolist()}
+    with torch.no_grad():
+        for t, v in zip(_step_state(trainer), saved):
+            t.copy_(v)
+    trainer.opt.count = count
+    return out
 
 
 GAN_LOSSES = ("gen_loss", "feat_loss", "disc_loss")
@@ -1624,6 +1729,76 @@ def check_ablation_roundtrips(kern, dev, rng) -> dict:
               flush=True)
         out[name] = res
     return out
+
+
+@torch.no_grad()
+def check_standalone_rvq(kern, dev) -> dict:
+    """The standalone ``ResidualVectorQuantize`` at esc_tpu's defaults, in
+    eval mode, weights and latents from the seed: at num_streams 1, 3, 6,
+    ``encode`` with ``num_streams`` argmin launches and the eval forward
+    with one per codebook (every stage runs at inference), codes against
+    the same module on the plain argmin, the same codes decoded on the card
+    and on the CPU; call ms of ``encode`` at 6 streams, kernel and plain."""
+    from esc_tpu_torch.modules.vq import ResidualVectorQuantize
+
+    torch.manual_seed(SEED)
+    cpu = ResidualVectorQuantize().eval()
+    rvq = ResidualVectorQuantize().to(dev).eval()
+    plain = ResidualVectorQuantize().to(dev).eval()
+    rvq.load_state_dict(cpu.state_dict())
+    plain.load_state_dict(cpu.state_dict())
+    for vq in plain.vqs:
+        vq.plain_ops = True
+    rng = np.random.default_rng(SEED)
+    z = torch.tensor(rng.standard_normal(
+        (RVQ_BATCH, rvq.in_freq * RVQ_FRAMES, rvq.in_dim)),
+        dtype=torch.float32, device=dev)
+    frames = RVQ_FRAMES // rvq.overlap
+    num_vqs = len(rvq.vqs)
+    res = {"rows": RVQ_BATCH * frames, "launches": {}, "mismatch": {},
+           "wave_err": {}}
+    rvq.encode(z, num_vqs)                          # warm-up, not counted
+    for ns in STREAMS:
+        codes, enc = counted(kern, f"standalone RVQ encode ns={ns}",
+                             lambda: rvq.encode(z, ns),
+                             expect={"codebook_argmin"})
+        out, fwd = counted(kern, f"standalone RVQ eval forward ns={ns}",
+                           lambda: rvq(z, ns), expect={"codebook_argmin"})
+        if enc["codebook_argmin"] != ns or fwd["codebook_argmin"] != num_vqs:
+            raise RuntimeError(f"standalone RVQ ns={ns}: launches {enc} per "
+                               f"encode, {fwd} per forward, predicted {ns} "
+                               f"and {num_vqs}")
+        if tuple(codes.shape) != (RVQ_BATCH, ns, frames) \
+                or tuple(out["codes"].shape) != (RVQ_BATCH, num_vqs, frames) \
+                or tuple(out["z_q"].shape) != tuple(z.shape) \
+                or not bool(torch.isfinite(out["z_q"]).all()):
+            raise RuntimeError(f"standalone RVQ ns={ns}: codes "
+                               f"{tuple(codes.shape)}, forward "
+                               f"{tuple(out['codes'].shape)}, z_q "
+                               f"{tuple(out['z_q'].shape)}")
+        mismatch = max(float((plain.encode(z, ns) != codes).float().mean()),
+                       float((plain(z, ns)["codes"] != out["codes"])
+                             .float().mean()))
+        err = float((rvq.decode(codes).cpu()
+                     - cpu.decode(codes.cpu())).abs().max())
+        if mismatch > CODE_MISMATCH_MAX or err > WAVE_ATOL:
+            raise RuntimeError(f"standalone RVQ ns={ns}: code mismatch "
+                               f"{mismatch:.4%} against the plain argmin, "
+                               f"the same codes decoded card vs CPU {err:.3g}")
+        res["launches"][ns] = {"encode": enc, "forward": fwd}
+        res["mismatch"][ns], res["wave_err"][ns] = mismatch, err
+        print(f"  standalone RVQ ns={ns}: codes {tuple(codes.shape)}, "
+              f"mismatch vs plain {mismatch:.4%} (<= 0.2%), the same codes "
+              f"decoded card vs CPU: max abs diff {err:.3g} (<= 5e-4)",
+              flush=True)
+    res["encode_call_ms"] = {
+        "kernel": call_ms(lambda: rvq.encode(z, num_vqs)),
+        "plain": call_ms(lambda: plain.encode(z, num_vqs))}
+    print(f"  standalone RVQ encode at ns=6 ({num_vqs} searches of "
+          f"{res['rows']} x 1024 x 8), call ms: kernel "
+          f"{res['encode_call_ms']['kernel']:.4f}, plain "
+          f"{res['encode_call_ms']['plain']:.4f}", flush=True)
+    return res
 
 
 def check_ablation_clis(kern, dev, rng, tmp: Path) -> dict:
@@ -2541,7 +2716,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         data_parallel = check_data_parallel(rng, Path(tmp))
     t0 = phase("8 dp", t0, f"--num_devices {data_parallel['cards']} ok")
-    ablations = {"roundtrips": check_ablation_roundtrips(KERNELS, dev, rng)}
+    ablations = {"roundtrips": check_ablation_roundtrips(KERNELS, dev, rng),
+                 "rvq": check_standalone_rvq(KERNELS, dev)}
     with tempfile.TemporaryDirectory() as tmp:
         ablations["clis"] = check_ablation_clis(KERNELS, dev, rng, Path(tmp))
     with tempfile.TemporaryDirectory() as tmp:
@@ -2549,7 +2725,7 @@ def main() -> int:
                                                      Path(tmp))
     t0 = phase("9 ablation", t0, "rvq+swinT, csvq+conv and rvq+conv: "
                "roundtrips, the three CLIs, training and its refusal, "
-               "checkpoints ok")
+               "checkpoints; the standalone residual VQ ok")
     with eval_tmp:
         multicard, dp_launches = check_multicard(
             KERNELS, dev, rng, evaluation.pop("dirs"),
@@ -2613,6 +2789,9 @@ def main() -> int:
             "ablation": {codec: tms[name] for codec, tms in
                          ablation_timing.items() if name in tms},
             "dac_launches": dac_launches[name],
+            "rvq_launches": {ns: {path: counts[name] for path, counts in
+                                  by_path.items()} for ns, by_path in
+                             ablations["rvq"]["launches"].items()},
             "chunked_dp_launches": dp_launches[name]})
     summary[0]["dac"] = {
         "shape": f"{len(dac_file_calls)} x {dac_file_calls[0]} per "

@@ -12,7 +12,7 @@ import torch
 from ..ops.mel import MEL_BINS, MEL_WINDOWS, mel_spectrogram
 
 __all__ = ["POWER", "GRAD_FLOOR", "power_law", "complex_stft_loss",
-           "mel_spectrogram_loss"]
+           "mel_spectrogram_loss", "ComplexSTFTLoss", "MelSpectrogramLoss"]
 
 POWER = 0.3
 # The derivative of (|x| + 1e-10)^0.3 is ~3e6 at x = 0, so exact-zero STFT
@@ -69,3 +69,33 @@ def mel_spectrogram_loss(raw_audio: torch.Tensor, recon_audio: torch.Tensor,
         ly = torch.log10(y_m.clamp_min(clamp_eps) ** 2)
         loss = loss + (lx - ly).abs().mean((1, 2))
     return weight * loss
+
+
+class ComplexSTFTLoss:
+    """:func:`complex_stft_loss` as a callable with its weight, the
+    reference's class interface."""
+
+    def __init__(self, weight: float = 1.0, power_law: bool = True):
+        self.weight = weight
+        self.power_law = power_law
+
+    def __call__(self, raw_feat: torch.Tensor,
+                 recon_feat: torch.Tensor) -> torch.Tensor:
+        return complex_stft_loss(raw_feat, recon_feat, self.weight,
+                                 self.power_law)
+
+
+class MelSpectrogramLoss:
+    """:func:`mel_spectrogram_loss` as a callable with its weight, the
+    reference's class interface."""
+
+    def __init__(self, weight: float = 1.0, clamp_eps: float = 1e-5,
+                 sample_rate: int = 16000):
+        self.weight = weight
+        self.clamp_eps = clamp_eps
+        self.sample_rate = sample_rate
+
+    def __call__(self, raw_audio: torch.Tensor,
+                 recon_audio: torch.Tensor) -> torch.Tensor:
+        return mel_spectrogram_loss(raw_audio, recon_audio, self.weight,
+                                    self.clamp_eps, self.sample_rate)

@@ -3,8 +3,9 @@
 Port of ``esc_tpu/modules/vq.py`` (reference:
 esc/modules/vq/{codebook,quantization}.py): ``split_dimension``,
 ``pre_process`` / ``post_process``, ``Codebook``, ``ProductVectorQuantize``
-(ESC's per-scale quantizer) and, for the ablation codecs' bottleneck,
-``ResidualVectorQuantize`` and ``ProductResidualVectorQuantize``. A
+(ESC's per-scale quantizer), ``ResidualVectorQuantize`` (standalone, on a
+latent of its own) and ``ProductResidualVectorQuantize`` (the ablation
+codecs' bottleneck, one residual VQ per group). A
 latent is either the transformer backbone's tokens ``(B, H*W, C)`` or the
 convolution backbone's maps ``(B, C, H, W)``. At inference the
 nearest-codeword search is the codebook argmin kernel
@@ -17,7 +18,7 @@ straight-through estimate with per-sample losses.
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import torch
 import torch.nn as nn
@@ -194,22 +195,40 @@ class ProductVectorQuantize(nn.Module):
 
 
 class ResidualVectorQuantize(nn.Module):
-    """Residual VQ of one group's features (quantization.py:139-274):
+    """Classic residual VQ with stream masking (quantization.py:139-274):
     ``num_vqs`` codebooks, each quantizing what the ones before it left,
     behind a projection down to ``codebook_dim`` (and back up) where the
-    group is wider. Only the pieces that the product-residual VQ calls are
-    ported; the JAX package's own framing of a latent here has no caller."""
+    hidden width differs. Standalone, it frames a latent as
+    :class:`ProductVectorQuantize` does (``in_dim``, ``in_freq``,
+    ``overlap``; the hidden width defaults to ``fix_dim * overlap``);
+    inside :class:`ProductResidualVectorQuantize` each group's quantizer
+    takes its group's width as ``hidden_dim`` and only its residual stages
+    and projections run."""
 
-    def __init__(self, hidden_dim: int, num_vqs: int = 6,
-                 codebook_dim: int = 8, codebook_size: int = 1024,
-                 l2norm: bool = True):
+    def __init__(self, in_dim: int = 64, in_freq: int = 6,
+                 hidden_dim: Optional[int] = None, overlap: int = 4,
+                 num_vqs: int = 6, codebook_dim: int = 8,
+                 codebook_size: int = 1024, l2norm: bool = True):
         super().__init__()
-        self.do_proj = hidden_dim != codebook_dim
+        self.in_dim, self.in_freq, self.overlap = in_dim, in_freq, overlap
+        self.codebook_dim = codebook_dim
+        self.hidden_dim = hidden_dim if hidden_dim is not None \
+            else self.fix_dim * overlap
         if self.do_proj:
-            self.proj_down = nn.Linear(hidden_dim, codebook_dim, bias=False)
-            self.proj_up = nn.Linear(codebook_dim, hidden_dim, bias=False)
+            self.proj_down = nn.Linear(self.hidden_dim, codebook_dim,
+                                       bias=False)
+            self.proj_up = nn.Linear(codebook_dim, self.hidden_dim,
+                                     bias=False)
         self.vqs = nn.ModuleList([Codebook(codebook_dim, codebook_size, l2norm)
                                   for _ in range(num_vqs)])
+
+    @property
+    def fix_dim(self) -> int:
+        return self.in_freq * self.in_dim
+
+    @property
+    def do_proj(self) -> bool:
+        return self.hidden_dim != self.codebook_dim
 
     def down(self, z: torch.Tensor) -> torch.Tensor:
         return self.proj_down(z) if self.do_proj else z
@@ -256,6 +275,37 @@ class ResidualVectorQuantize(nn.Module):
             z_q = z_q + self.vqs[i].decode(codes[:, i])
         return z_q
 
+    def forward(self, z_e: torch.Tensor, num_streams: int,
+                freeze_vq: bool = False) -> Dict[str, torch.Tensor]:
+        """Quantize and dequantize a latent: ``{"z_q" (its layout),
+        "codes" (B, num_vqs, T), "cb_loss" (B,), "cm_loss" (B,)}``, the
+        losses summed over the stages (quantization.py:198-221). Every
+        stage runs; in training mode those at or past ``num_streams`` are
+        masked. ``freeze_vq`` passes the projected latent through in the
+        quantized path's place, as :class:`ProductVectorQuantize` does."""
+        z = self.down(pre_process(z_e, self.in_freq, self.overlap,
+                                  self.fix_dim))
+        z_q, codes, cm_loss, cb_loss = self.residual_vector_quantization(
+            z, num_streams)
+        if freeze_vq:
+            z_q = z + z_q * 0.0
+            cb_loss, cm_loss = cb_loss * 0.0, cm_loss * 0.0
+        return {"z_q": post_process(self.up(z_q), self.in_freq, self.overlap,
+                                    self.fix_dim, z_e.dim()),
+                "codes": codes, "cb_loss": cb_loss, "cm_loss": cm_loss}
+
+    def encode(self, z_e: torch.Tensor, num_streams: int) -> torch.Tensor:
+        """A latent -> codes ``(B, num_streams, T)``: one search per
+        transmitted stage."""
+        return self.quantize_to_code(
+            self.down(pre_process(z_e, self.in_freq, self.overlap,
+                                  self.fix_dim)), num_streams)
+
+    def decode(self, codes: torch.Tensor, dims: int = 3) -> torch.Tensor:
+        """Codes ``(B, s, T)`` -> a latent of rank ``dims``."""
+        return post_process(self.up(self.dequantize_code(codes)),
+                            self.in_freq, self.overlap, self.fix_dim, dims)
+
 
 class ProductResidualVectorQuantize(nn.Module):
     """The bottleneck quantizer of the RVQ ablation codecs
@@ -273,8 +323,10 @@ class ProductResidualVectorQuantize(nn.Module):
         self.codebook_dim = codebook_dim
         self.vq_dims = split_dimension(self.fix_dim * overlap, num_pvqs)
         self.vqs = nn.ModuleList([
-            ResidualVectorQuantize(d, num_rvqs, codebook_dim, codebook_size,
-                                   l2norm) for d in self.vq_dims])
+            ResidualVectorQuantize(hidden_dim=d, num_vqs=num_rvqs,
+                                   codebook_dim=codebook_dim,
+                                   codebook_size=codebook_size, l2norm=l2norm)
+            for d in self.vq_dims])
 
     def _groups(self, z_e: torch.Tensor):
         """The groups of a latent, each projected down."""

@@ -22,10 +22,40 @@ from typing import Callable, Iterator, List, Optional
 
 import numpy as np
 
-from ..io import esc_pad_length, load_wav, wav_frames
+from ..io import esc_pad_length, load_wav, save_wav, wav_frames
 
 __all__ = ["EvalSet", "DataLoader", "make_dataloader",
-           "quantization_dropout", "esc_pad_length"]
+           "quantization_dropout", "esc_pad_length", "load_wav", "save_wav",
+           "download_data_hf"]
+
+
+def download_data_hf(repo_id: str = "../dnscustom",
+                     filename: str = "testset.tar.gz",
+                     local_dir: str = "./data",
+                     extract: bool = False) -> str:
+    """Fetch a dataset file from the Hugging Face hub (scripts/utils.py:
+    93-102) and return its path; with ``extract``, unpack a tarball into
+    ``local_dir`` (members outside it refused, ``tarfile``'s ``"data"``
+    filter). Needs the ``huggingface_hub`` package, imported here and not
+    with the module, and network access; without the package it raises
+    ``RuntimeError``: in an offline deployment, put the WAVs under
+    ``local_dir`` by hand."""
+    try:
+        from huggingface_hub import hf_hub_download
+    except ImportError as e:
+        raise RuntimeError(
+            "download_data_hf needs the optional `huggingface_hub` "
+            "package (pip install huggingface_hub). In an offline "
+            "deployment, place the eval wavs under data/ manually.") from e
+    file_path = hf_hub_download(repo_id=repo_id, filename=filename,
+                                repo_type="dataset", local_dir=local_dir)
+    print(f"File has been downloaded and is located at {file_path}")
+    if extract and str(file_path).endswith((".tar.gz", ".tgz", ".tar")):
+        import tarfile
+        with tarfile.open(file_path) as tf:
+            tf.extractall(local_dir, filter="data")
+        print(f"Extracted into {local_dir}")
+    return file_path
 
 
 def quantization_dropout(dropout_rate: float, max_streams: int,

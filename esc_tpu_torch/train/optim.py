@@ -31,7 +31,8 @@ import torch.nn as nn
 
 from ..convert import from_jax_params, to_jax_params
 
-__all__ = ["GAMMA", "SCHEDULES", "make_schedule", "AdamW"]
+__all__ = ["GAMMA", "SCHEDULES", "make_schedule", "AdamW",
+           "make_optimizer"]
 
 GAMMA = 0.999996  # exponential decay per step (scripts/utils.py:51)
 B1, B2, EPS, WEIGHT_DECAY = 0.9, 0.999, 1e-8, 0.01  # torch's AdamW defaults
@@ -194,3 +195,16 @@ class AdamW:
         for i, (n, p) in enumerate(zip(self.names, self.params)):
             self.mu[i] = torch.as_tensor(np.array(mu[n]), device=p.device)
             self.nu[i] = torch.as_tensor(np.array(nu[n]), device=p.device)
+
+
+def make_optimizer(params: Union[nn.Module,
+                                 Iterable[Tuple[str, torch.Tensor]]],
+                   lr: Union[float, Callable[[int], float]],
+                   clip_norm: Optional[float] = None) -> AdamW:
+    """AdamW with torch's defaults and an optional global-norm clip before
+    the step, as ``esc_tpu``'s ``make_optimizer(lr, clip_norm)``
+    (``esc_tpu/train/optim.py:77-96``) builds optax's chain. The
+    parameters come first, as a PyTorch optimizer takes them: a module or
+    ``(name, tensor)`` pairs. ``lr`` is a schedule (:func:`make_schedule`)
+    or a constant."""
+    return AdamW(params, lr, clip_norm=clip_norm)

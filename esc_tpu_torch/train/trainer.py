@@ -24,9 +24,9 @@ Port of ``esc_tpu/train/trainer.py`` (reference: scripts/trainer_no_adv.py):
 
 Training runs the kernels' plain versions (the modules' training mode), as
 the JAX package does; the per-epoch evaluation runs the kernels. The host
-reads the losses once per log window. The JAX package's ``make_multi_step``
-(many steps in one TPU dispatch) is not a feature of training and has no
-counterpart here.
+reads the losses once per log window. :func:`make_multi_step` runs K steps
+from a stacked batch in one call, the counterpart of the JAX package's
+``lax.scan`` of its step.
 """
 
 from __future__ import annotations
@@ -55,7 +55,7 @@ from .data import make_dataloader, quantization_dropout
 from .evaluate import eval_epoch
 from .optim import AdamW, make_schedule
 
-__all__ = ["Trainer", "reproducible"]
+__all__ = ["Trainer", "reproducible", "make_multi_step"]
 
 
 def reproducible(step):
@@ -355,3 +355,37 @@ class Trainer:
         print0(f"Loaded checkpoint {path}: step {self.start_step}, best "
                f"{self.best_perf}" + (" (optimizer state restored)"
                                       if restored else ""))
+
+
+def make_multi_step(step, freeze: bool):
+    """K training steps per call (``esc_tpu/train/trainer.py:399-420``).
+
+    ``step`` is a trainer's bound ``train_step``, the counterpart of the
+    JAX package's ``step_core``; ``freeze`` is fixed for the returned
+    ``multi_step(batches, num_streams)``. ``batches`` is ``(K, B, L)``,
+    moved to the trainer's device once before the first step;
+    ``num_streams`` holds K stream counts (a tensor is read to the host
+    once, before the loop). The K steps run in order, each exactly as
+    ``step(batches[k], num_streams[k], freeze)``, and nothing in the loop
+    waits for the device. Returns each loss of the step (``cm_loss``,
+    ``cb_loss``, ``mel_loss``, ``stft_loss``, ``loss``) stacked to a
+    ``(K,)`` tensor on the device.
+
+    The state is the trainer's module and optimizer, updated in place as
+    ``train_step`` updates them (the JAX function takes the state and
+    returns a new one). On several ranks each step averages its gradients
+    itself, as ``train_step`` does."""
+    device = step.__self__.device
+
+    def multi_step(batches, num_streams) -> Dict[str, torch.Tensor]:
+        streams = torch.as_tensor(num_streams).reshape(-1).tolist()
+        if len(batches) != len(streams):
+            raise ValueError(f"{len(batches)} batches but {len(streams)} "
+                             f"stream counts")
+        batches = torch.as_tensor(batches).to(device)
+        losses = [step(batch, int(s), freeze)
+                  for batch, s in zip(batches, streams)]
+        return {k: torch.stack([aux[k] for aux in losses])
+                for k in losses[0]}
+
+    return multi_step

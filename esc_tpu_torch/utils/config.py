@@ -17,14 +17,19 @@ Anchors, tags, block scalars (``|``, ``>``) and multiple documents raise
 ``ValueError``. :func:`dump_yaml` writes a config back in that subset
 (maps in block style, lists in flow style, strings quoted), which the port
 and PyYAML both read as it was.
+
+:func:`dict2namespace` / :func:`namespace2dict` turn a config into nested
+``argparse.Namespace`` objects and back (scripts/utils.py:75-91).
 """
 
 from __future__ import annotations
 
+import argparse
 import re
 from typing import Any, List, Tuple
 
-__all__ = ["read_yaml", "parse_yaml", "dump_yaml", "write_yaml"]
+__all__ = ["read_yaml", "parse_yaml", "dump_yaml", "write_yaml",
+           "dict2namespace", "namespace2dict", "download_data_hf"]
 
 _NULL = {"", "~", "null", "Null", "NULL"}
 _TRUE = {"yes", "Yes", "YES", "true", "True", "TRUE", "on", "On", "ON"}
@@ -361,3 +366,38 @@ def dump_yaml(config: dict, indent: int = 0) -> str:
 def write_yaml(path: str, config: dict) -> None:
     with open(path, "w") as f:
         f.write(dump_yaml(config))
+
+
+def dict2namespace(config: dict) -> argparse.Namespace:
+    """A config dict -> nested namespaces, a dict value becoming one."""
+    ns = argparse.Namespace()
+    for key, value in config.items():
+        setattr(ns, key,
+                dict2namespace(value) if isinstance(value, dict) else value)
+    return ns
+
+
+def namespace2dict(config) -> dict:
+    """The inverse of :func:`dict2namespace`; other values pass through."""
+    if isinstance(config, argparse.Namespace):
+        return {k: namespace2dict(v) for k, v in vars(config).items()}
+    return config
+
+
+def download_data_hf(repo_id: str = "yzGuu830/dnscustom",
+                     filename: str = "testset.tar.gz",
+                     local_dir: str = "./data") -> str:
+    """Fetch an evaluation-set tarball from the Hugging Face hub
+    (scripts/utils.py:93-102) and return its path. Needs the
+    ``huggingface_hub`` package, imported here and not with the module,
+    and network access; without the package it raises ``ImportError``."""
+    try:
+        from huggingface_hub import hf_hub_download
+    except ImportError as e:
+        raise ImportError(
+            "download_data_hf needs the 'huggingface_hub' package "
+            "(pip install huggingface_hub)") from e
+    path = hf_hub_download(repo_id=repo_id, filename=filename,
+                           repo_type="dataset", local_dir=local_dir)
+    print(f"File has been downloaded and is located at {path}")
+    return path

@@ -138,10 +138,13 @@ def test_importing_the_cli_loads_no_jax():
             "esc_tpu_torch.baselines.dac.trainer, "
             "esc_tpu_torch.baselines.dac.__main__, "
             "esc_tpu_torch.baselines.encodec, "
-            "esc_tpu_torch.utils.profiling; "
+            "esc_tpu_torch.utils.profiling, esc_tpu_torch.modules, "
+            "esc_tpu_torch.train, esc_tpu_torch.utils, esc_tpu_torch.models; "
+            "from esc_tpu_torch.ops.kernels import _build; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{_FORBIDDEN!r}); print(bad); "
-            "sys.exit(1 if bad else 0)")
+            "built = _build.library.cache_info().currsize; print(built); "
+            "sys.exit(1 if bad or built else 0)")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=120)
