@@ -18,6 +18,7 @@ import torch.nn as nn
 from ..modules.convolution import ConvolutionLayer, ConvolutionStage
 from ..modules.scale import PatchDeEmbed, PatchEmbed
 from ..modules.transformer import TransformerLayer
+from ..utils.profiling import annotate
 
 __all__ = ["Encoder", "Decoder", "max_bps", "BACKBONES", "backbone_layers"]
 
@@ -82,10 +83,12 @@ class Encoder(nn.Module):
                 ) -> Tuple[List[torch.Tensor], Tuple[int, int]]:
         H = x_feat.shape[2] // self.patch_size[0]
         W = x_feat.shape[3] // self.patch_size[1]
-        x, H, W = self.pre_nn(self.patch_embed(x_feat), H, W)
+        with annotate("encoder.embed"):
+            x, H, W = self.pre_nn(self.patch_embed(x_feat), H, W)
         enc_hs = [x]
-        for blk in self.blocks:
-            x, H, W = blk(x, H, W)
+        for i, blk in enumerate(self.blocks):
+            with annotate(f"encoder.s{i}"):
+                x, H, W = blk(x, H, W)
             enc_hs.append(x)
         return enc_hs, (H, W)
 
@@ -115,7 +118,19 @@ class Decoder(nn.Module):
     def forward(self, z_q: torch.Tensor, feat_shape: Tuple[int, int]
                 ) -> torch.Tensor:
         H, W = feat_shape
-        for blk in self.blocks:
-            z_q, H, W = blk(z_q, H, W)
-        z_q, H, W = self.post_nn(z_q, H, W)
-        return self.patch_deembed(z_q)
+        for i in range(len(self.blocks)):
+            z_q, H, W = self.up(i, z_q, H, W)
+        return self.post(z_q, H, W)
+
+    def up(self, i: int, x: torch.Tensor, H: int, W: int
+           ) -> Tuple[torch.Tensor, int, int]:
+        """Up-scaling layer ``i``."""
+        with annotate(f"decoder.s{i}"):
+            return self.blocks[i](x, H, W)
+
+    def post(self, x: torch.Tensor, H: int, W: int) -> torch.Tensor:
+        """``post_nn`` and PatchDeEmbed: the top scale's tokens or maps to
+        the spectrum ``(B, 2, F, T)``."""
+        with annotate("decoder.post"):
+            x, H, W = self.post_nn(x, H, W)
+            return self.patch_deembed(x)

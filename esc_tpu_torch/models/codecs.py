@@ -50,6 +50,7 @@ from ..modules.transformer import FeedForward, WindowAttention
 from ..modules.vq import (Codebook, ProductResidualVectorQuantize,
                           ProductVectorQuantize)
 from ..ops.stft import audio_reconstruct, spec_transform
+from ..utils.profiling import annotate
 from .base import Decoder, Encoder, max_bps
 from .csrvq import CrossScaleRVQDecoder
 
@@ -63,6 +64,20 @@ __all__ = ["ESCModule", "RVQModule", "Codec", "ESC", "RVQCodecs",
 IGNORED_PREFIXES = ("ft.", "ift.")
 IGNORED_PARTS = ("relative_position_index", "num_batches_tracked",
                  "mel_transf")
+
+
+def _stft(module: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """The codec module's spectrum of the waveform ``x``."""
+    with annotate("codec.stft"):
+        return spec_transform(x, module.in_freq, module.win_len,
+                              module.hop_len, module.sr)
+
+
+def _istft(module: nn.Module, feat: torch.Tensor) -> torch.Tensor:
+    """The codec module's waveform of the spectrum ``feat``."""
+    with annotate("codec.istft"):
+        return audio_reconstruct(feat, module.in_freq, module.win_len,
+                                 module.hop_len, module.sr)
 
 
 class ESCModule(nn.Module):
@@ -115,32 +130,27 @@ class ESCModule(nn.Module):
             refuse_training()
         if freeze_codebook:
             num_streams = self.max_streams
-        x_feat = spec_transform(x, self.in_freq, self.win_len, self.hop_len,
-                                self.sr)
+        x_feat = _stft(self, x)
         enc_hs, feat_shape = self.encoder(x_feat)
         recon_feat, codes, cm_loss, cb_loss = self.decoder(
             enc_hs, num_streams, self.quantizers, feat_shape,
             freeze_vq=freeze_codebook)
-        recon_x = audio_reconstruct(recon_feat, self.in_freq, self.win_len,
-                                    self.hop_len, self.sr)
+        recon_x = _istft(self, recon_feat)
         return {"cm_loss": cm_loss, "cb_loss": cb_loss, "raw_audio": x,
                 "recon_audio": recon_x, "raw_feat": x_feat,
                 "recon_feat": recon_feat, "codes": codes}
 
     def encode(self, x: torch.Tensor, num_streams: int) -> torch.Tensor:
         """Waveform ``(B, L)`` -> codes ``(B, num_streams, groups, T)``."""
-        feat = spec_transform(x, self.in_freq, self.win_len, self.hop_len,
-                              self.sr)
-        enc_hs, feat_shape = self.encoder(feat)
+        enc_hs, feat_shape = self.encoder(_stft(self, x))
         return self.decoder.encode(enc_hs, num_streams, self.quantizers,
                                    feat_shape)
 
     def decode(self, codes: torch.Tensor, feat_shape: Tuple[int, int]
                ) -> torch.Tensor:
         """Codes -> waveform ``(B, (T-1)*hop)``."""
-        feat = self.decoder.decode(codes, self.quantizers, feat_shape)
-        return audio_reconstruct(feat, self.in_freq, self.win_len,
-                                 self.hop_len, self.sr)
+        return _istft(self, self.decoder.decode(codes, self.quantizers,
+                                               feat_shape))
 
 
 class RVQModule(nn.Module):
@@ -189,31 +199,29 @@ class RVQModule(nn.Module):
         in training the stages past it are masked."""
         if self.training and self.backbone == "convolution":
             refuse_training()
-        x_feat = spec_transform(x, self.in_freq, self.win_len, self.hop_len,
-                                self.sr)
+        x_feat = _stft(self, x)
         enc_hs, feat_shape = self.encoder(x_feat)
-        out = self.quantizers(enc_hs[-1], num_streams,
-                              freeze_vq=freeze_codebook)
+        with annotate("vq.s0"):
+            out = self.quantizers(enc_hs[-1], num_streams,
+                                  freeze_vq=freeze_codebook)
         recon_feat = self.decoder(out["z_q"], feat_shape)
-        recon_x = audio_reconstruct(recon_feat, self.in_freq, self.win_len,
-                                    self.hop_len, self.sr)
+        recon_x = _istft(self, recon_feat)
         return {"cm_loss": out["cm_loss"], "cb_loss": out["cb_loss"],
                 "raw_audio": x, "recon_audio": recon_x, "raw_feat": x_feat,
                 "recon_feat": recon_feat, "codes": out["codes"]}
 
     def encode(self, x: torch.Tensor, num_streams: int) -> torch.Tensor:
         """Waveform ``(B, L)`` -> codes ``(B, num_streams, groups, T)``."""
-        feat = spec_transform(x, self.in_freq, self.win_len, self.hop_len,
-                              self.sr)
-        enc_hs, _ = self.encoder(feat)
-        return self.quantizers.encode(enc_hs[-1], num_streams)
+        enc_hs, _ = self.encoder(_stft(self, x))
+        with annotate("vq.s0"):
+            return self.quantizers.encode(enc_hs[-1], num_streams)
 
     def decode(self, codes: torch.Tensor, feat_shape: Tuple[int, int]
                ) -> torch.Tensor:
         """Codes -> waveform ``(B, (T-1)*hop)``."""
-        z_q = self.quantizers.decode(codes, self.decoder.latent_dims)
-        return audio_reconstruct(self.decoder(z_q, feat_shape), self.in_freq,
-                                 self.win_len, self.hop_len, self.sr)
+        with annotate("vq.s0"):
+            z_q = self.quantizers.decode(codes, self.decoder.latent_dims)
+        return _istft(self, self.decoder(z_q, feat_shape))
 
 
 @torch.no_grad()
@@ -330,27 +338,32 @@ class Codec:
                 f"(got {num_streams}); bitrate = num_streams * 1.5 kbps")
 
     def _audio(self, x) -> torch.Tensor:
-        if not isinstance(x, torch.Tensor):
-            x = torch.from_numpy(np.array(x, np.float32))
-        x = x.to(self.device, torch.float32)
-        return x[None] if x.dim() == 1 else x
+        with annotate("codec.upload"):
+            if not isinstance(x, torch.Tensor):
+                x = torch.from_numpy(np.array(x, np.float32))
+            x = x.to(self.device, torch.float32)
+            return x[None] if x.dim() == 1 else x
 
     @torch.no_grad()
     def encode(self, x, num_streams: int = 6
                ) -> Tuple[torch.Tensor, Tuple[int, int]]:
         """Waveform ``(B, L)`` -> (int32 codes ``(B, s, groups, T)`` on the
         device, feat_shape)."""
-        self._check_streams(num_streams)
-        x = self._audio(x)
-        return self.module.encode(x, num_streams), self.feat_shape(x.shape[-1])
+        with annotate("codec.encode"):
+            self._check_streams(num_streams)
+            x = self._audio(x)
+            return (self.module.encode(x, num_streams),
+                    self.feat_shape(x.shape[-1]))
 
     @torch.no_grad()
     def decode(self, codes, feat_shape: Tuple[int, int]) -> torch.Tensor:
         """(codes, feat_shape) -> waveform ``(B, L)`` on the device."""
-        if not isinstance(codes, torch.Tensor):
-            codes = torch.from_numpy(np.array(codes))
-        codes = codes.to(self.device)
-        return self.module.decode(codes, tuple(feat_shape))
+        with annotate("codec.decode"):
+            with annotate("codec.upload"):
+                if not isinstance(codes, torch.Tensor):
+                    codes = torch.from_numpy(np.array(codes))
+                codes = codes.to(self.device)
+            return self.module.decode(codes, tuple(feat_shape))
 
     def roundtrip(self, x, num_streams: int = 6):
         """Waveform -> (codes, feat_shape, reconstruction)."""

@@ -18,6 +18,7 @@ from typing import List, Tuple
 
 import torch
 
+from ..utils.profiling import annotate
 from .base import Decoder
 
 __all__ = ["CrossScaleRVQDecoder"]
@@ -38,59 +39,64 @@ class CrossScaleRVQDecoder(Decoder):
         at inference only the transmitted ones."""
         H, W = feat_shape
         dec, cm_loss, cb_loss, code = self._fuse(
-            enc_hs[-1], 0.0, quantizers[0], True, freeze_vq)
+            0, enc_hs[-1], 0.0, quantizers[0], True, freeze_vq)
         codes = [code]
-        for i, blk in enumerate(self.blocks):
+        for i in range(len(self.blocks)):
             dec, cm_i, cb_i, code_i = self._fuse(
-                enc_hs[-1 - i], dec, quantizers[i + 1], i < num_streams - 1,
-                freeze_vq)
+                i + 1, enc_hs[-1 - i], dec, quantizers[i + 1],
+                i < num_streams - 1, freeze_vq)
             cm_loss = cm_loss + cm_i
             cb_loss = cb_loss + cb_i
             if code_i is not None:
                 codes.append(code_i)
-            dec, H, W = blk(dec, H, W)
-        dec, H, W = self.post_nn(dec, H, W)
-        return (self.patch_deembed(dec), torch.stack(codes, dim=1), cm_loss,
+            dec, H, W = self.up(i, dec, H, W)
+        return (self.post(dec, H, W), torch.stack(codes, dim=1), cm_loss,
                 cb_loss)
 
-    def _fuse(self, enc, dec, vq, transmit: bool, freeze_vq: bool):
+    def _fuse(self, scale: int, enc, dec, vq, transmit: bool,
+              freeze_vq: bool):
         """Quantize ``enc - dec`` and add it to ``dec`` (csrvq.py:23-48);
         returns ``(dec', cm_loss, cb_loss, codes)``."""
         if not self.training and not transmit:
             return dec, 0.0, 0.0, None
-        out = vq(enc - dec, freeze_vq=freeze_vq)
-        live = float(transmit)
-        return (out["z_q"] * live + dec, out["cm_loss"] * live,
-                out["cb_loss"] * live, out["codes"])
+        with annotate(f"vq.s{scale}"):
+            out = vq(enc - dec, freeze_vq=freeze_vq)
+            live = float(transmit)
+            return (out["z_q"] * live + dec, out["cm_loss"] * live,
+                    out["cb_loss"] * live, out["codes"])
 
     def encode(self, enc_hs: List[torch.Tensor], num_streams: int,
                quantizers, feat_shape: Tuple[int, int]) -> torch.Tensor:
         """Encoder states -> codes ``(B, num_streams, groups, T)``; runs only
         the scales that are transmitted."""
         H, W = feat_shape
-        code0 = quantizers[0].encode(enc_hs[-1])
-        if num_streams == 1:
-            return code0[:, None]
-        codes, dec = [code0], quantizers[0].decode(code0, self.latent_dims)
+        with annotate("vq.s0"):
+            code0 = quantizers[0].encode(enc_hs[-1])
+            if num_streams == 1:
+                return code0[:, None]
+            codes, dec = [code0], quantizers[0].decode(code0,
+                                                       self.latent_dims)
         for i in range(num_streams - 1):
-            code_i = quantizers[i + 1].encode(enc_hs[-1 - i] - dec)
-            codes.append(code_i)
-            if len(codes) == num_streams:
-                break
-            dec = quantizers[i + 1].decode(code_i, self.latent_dims) + dec
-            dec, H, W = self.blocks[i](dec, H, W)
-        return torch.stack(codes, dim=1)
+            with annotate(f"vq.s{i + 1}"):
+                code_i = quantizers[i + 1].encode(enc_hs[-1 - i] - dec)
+                codes.append(code_i)
+                if len(codes) == num_streams:      # the last scale sent
+                    return torch.stack(codes, dim=1)
+                dec = quantizers[i + 1].decode(code_i, self.latent_dims) \
+                    + dec
+            dec, H, W = self.up(i, dec, H, W)
 
     def decode(self, codes: torch.Tensor, quantizers,
                feat_shape: Tuple[int, int]) -> torch.Tensor:
         """Codes ``(B, s, groups, T)`` -> spectrum ``(B, 2, F, T)``."""
         H, W = feat_shape
         num_streams = codes.shape[1]
-        dec = quantizers[0].decode(codes[:, 0], self.latent_dims)
-        for i, blk in enumerate(self.blocks):
+        with annotate("vq.s0"):
+            dec = quantizers[0].decode(codes[:, 0], self.latent_dims)
+        for i in range(len(self.blocks)):
             if i < num_streams - 1:
-                dec = quantizers[i + 1].decode(codes[:, i + 1],
-                                                self.latent_dims) + dec
-            dec, H, W = blk(dec, H, W)
-        dec, H, W = self.post_nn(dec, H, W)
-        return self.patch_deembed(dec)
+                with annotate(f"vq.s{i + 1}"):
+                    dec = quantizers[i + 1].decode(codes[:, i + 1],
+                                                    self.latent_dims) + dec
+            dec, H, W = self.up(i, dec, H, W)
+        return self.post(dec, H, W)

@@ -12,6 +12,11 @@ on each batch. :func:`stream_map` keeps at most ``depth`` batches in flight:
 So the host launches batch ``i + 1 .. i + depth - 1`` while batch ``i``
 computes and downloads. ``depth=1`` is the serial loop. On the CPU the calls
 are plain.
+
+Under a profiler each batch shows as four spans
+(:mod:`esc_tpu_torch.utils.profiling`): ``serving.upload``,
+``serving.launch`` (the host's enqueue of ``fn``'s work),
+``serving.download`` and ``serving.wait``.
 """
 
 from __future__ import annotations
@@ -21,6 +26,8 @@ from typing import Any, Callable, Iterable, Iterator, Optional, Union
 
 import numpy as np
 import torch
+
+from .utils.profiling import annotate
 
 __all__ = ["stream_map", "stream_roundtrip"]
 
@@ -44,7 +51,8 @@ def _upload(tree, device: torch.device):
         if device.type == "cuda" and leaf.device.type == "cpu":
             return leaf.pin_memory().to(device, non_blocking=True)
         return leaf.to(device)
-    return _tree_map(up, tree)
+    with annotate("serving.upload"):
+        return _tree_map(up, tree)
 
 
 def _start_download(tree):
@@ -60,9 +68,10 @@ def _start_download(tree):
             event = torch.cuda.Event()
             return host
         return leaf
-    host = _tree_map(down, tree)
-    if event is not None:
-        event.record()
+    with annotate("serving.download"):
+        host = _tree_map(down, tree)
+        if event is not None:
+            event.record()
     return host, event
 
 
@@ -70,14 +79,16 @@ def _finish(item, to_host: bool):
     if not to_host:
         return item
     host, event = item
-    if event is None:
-        return _tree_map(lambda leaf: leaf.numpy()
+    with annotate("serving.wait"):
+        if event is None:
+            return _tree_map(lambda leaf: leaf.numpy()
+                             if isinstance(leaf, torch.Tensor) else leaf,
+                             host)
+        event.synchronize()
+        # copied out, so that the pinned buffers go back to PyTorch's cache
+        # of pinned memory for the next batches instead of being pinned anew
+        return _tree_map(lambda leaf: leaf.numpy().copy()
                          if isinstance(leaf, torch.Tensor) else leaf, host)
-    event.synchronize()
-    # copied out, so that the pinned buffers go back to PyTorch's cache of
-    # pinned memory for the next batches instead of being pinned anew
-    return _tree_map(lambda leaf: leaf.numpy().copy()
-                     if isinstance(leaf, torch.Tensor) else leaf, host)
 
 
 def stream_map(fn: Callable[[Any], Any], inputs: Iterable[Any],
@@ -96,7 +107,10 @@ def stream_map(fn: Callable[[Any], Any], inputs: Iterable[Any],
     dev = torch.device(device) if device is not None else None
     inflight: deque = deque()
     for batch in inputs:
-        out = fn(_upload(batch, dev) if dev is not None else batch)
+        if dev is not None:
+            batch = _upload(batch, dev)
+        with annotate("serving.launch"):
+            out = fn(batch)
         inflight.append(_start_download(out) if to_host else out)
         if len(inflight) >= depth:
             yield _finish(inflight.popleft(), to_host)

@@ -34,6 +34,7 @@ from __future__ import annotations
 import functools
 import json
 import math
+import operator
 import os
 import time
 from typing import Dict, Optional
@@ -50,7 +51,7 @@ from ..modules.convolution import refuse_training
 from ..modules.losses import complex_stft_loss, mel_spectrogram_loss
 from ..parallel import DataParallel, process_is_main
 from ..utils.config import write_yaml
-from ..utils.profiling import StepTimer
+from ..utils.profiling import StepTimer, annotate
 from .data import make_dataloader, quantization_dropout
 from .evaluate import eval_epoch
 from .optim import AdamW, make_schedule
@@ -158,24 +159,58 @@ class Trainer:
         """One step on a batch ``(B, L)``: forward in training mode, the
         weighted per-sample losses' mean, backward, clip and AdamW. Returns
         the batch means of the losses, on the device."""
-        module = self.model.module
+        with annotate("train.step"):
+            aux, _ = self._generator_phases(self._upload(batch), num_streams,
+                                            freeze)
+        return aux
+
+    def _upload(self, batch) -> torch.Tensor:
+        """A host batch ``(B, L)`` on the trainer's device."""
+        with annotate("train.upload"):
+            return torch.as_tensor(batch).to(self.device)
+
+    def _loss_terms(self, out: Dict[str, torch.Tensor], freeze: bool
+                    ) -> Dict[str, torch.Tensor]:
+        """The per-sample loss terms of a forward's output, by the names of
+        ``loss_weights``."""
+        return {"cm": out["cm_loss"], "cb": out["cb_loss"],
+                "mel": mel_spectrogram_loss(out["raw_audio"],
+                                            out["recon_audio"]),
+                "stft": complex_stft_loss(out["raw_feat"], out["recon_feat"])}
+
+    def _generator_phases(self, x: torch.Tensor, num_streams: int,
+                          freeze: bool):
+        """The codec's forward in training mode, the weighted loss terms'
+        mean, backward and update (spans ``gen.*``). Returns the terms'
+        batch means and the reconstruction, detached."""
+        module, w = self.model.module, self.loss_weights
         module.train()
-        x = torch.as_tensor(batch).to(self.device)
-        out = module(x, num_streams, freeze)
-        mel = mel_spectrogram_loss(out["raw_audio"], out["recon_audio"])
-        stft_l = complex_stft_loss(out["raw_feat"], out["recon_feat"])
-        w = self.loss_weights
-        total = (out["cm_loss"] * w["cm"] + out["cb_loss"] * w["cb"]
-                 + mel * w["mel"] + stft_l * w["stft"])
-        loss = total.mean()
-        self.opt.zero_grad()
-        loss.backward()
-        self.dp.average_grads(self.opt.params)
-        self.opt.step()
-        return {"cm_loss": out["cm_loss"].mean().detach(),
-                "cb_loss": out["cb_loss"].mean().detach(),
-                "mel_loss": mel.mean().detach(),
-                "stft_loss": stft_l.mean().detach(), "loss": loss.detach()}
+        with annotate("gen.forward"):
+            out = module(x, num_streams, freeze)
+        with annotate("gen.loss"):
+            terms = self._loss_terms(out, freeze)
+            total = functools.reduce(operator.add, (
+                term * w[k] for k, term in terms.items()))
+            loss = total.mean()
+            aux = {f"{k}_loss": term.mean().detach()
+                   for k, term in terms.items()}
+            aux["loss"] = loss.detach()
+            recon = out["recon_audio"].detach()
+        with annotate("gen.backward"):
+            self.opt.zero_grad()
+            loss.backward()
+            # the autograd graph's last references: its release takes ms of
+            # host time at the adversarial step's size, and is the backward's
+            del out, terms, total, loss
+        self._update(self.opt, "gen")
+        return aux, recon
+
+    def _update(self, opt: AdamW, family: str) -> None:
+        """The gradients averaged over the ranks, then ``opt``'s clipped
+        AdamW step, in the span ``<family>.update``."""
+        with annotate(f"{family}.update"):
+            self.dp.average_grads(opt.params)
+            opt.step()
 
     def train(self):
         """Run to ``args.max_train_steps``; returns the model."""

@@ -33,7 +33,7 @@ import torch
 from ..convert import from_jax_params, to_jax_params
 from ..models.discriminator import Discriminator, init_discriminator
 from ..modules.gan_loss import discriminator_loss, generator_loss
-from ..modules.losses import complex_stft_loss, mel_spectrogram_loss
+from ..utils.profiling import annotate
 from .optim import AdamW
 from .trainer import Trainer, print0, reproducible
 
@@ -71,40 +71,30 @@ class TrainerAdv(Trainer):
         return model, train_dl, val_dl
 
     # ------------------------------------------------------------------
+    def _loss_terms(self, out: Dict[str, torch.Tensor], freeze: bool
+                    ) -> Dict[str, torch.Tensor]:
+        """The codec's terms, then the LS-GAN generator loss and feature
+        matching against the current discriminator, whose parameters are
+        held out of the backward pass; zeros in pretraining."""
+        terms = super()._loss_terms(out, freeze)
+        if freeze:                      # GAN terms off in pretraining
+            terms["gen"] = terms["feat"] = torch.zeros_like(terms["mel"])
+            return terms
+        self.disc.requires_grad_(False)
+        try:
+            terms["gen"], terms["feat"] = generator_loss(
+                self.disc, out["recon_audio"], out["raw_audio"])
+        finally:
+            self.disc.requires_grad_(True)
+        return terms
+
     @reproducible
     def generator_step(self, x: torch.Tensor, num_streams: int,
                        freeze: bool
                        ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
         """Steps 1-3: the generator's forward, losses and update. Returns
         the losses' batch means and the reconstruction, detached."""
-        module, w = self.model.module, self.loss_weights
-        module.train()
-        out = module(x, num_streams, freeze)
-        mel = mel_spectrogram_loss(out["raw_audio"], out["recon_audio"])
-        stft_l = complex_stft_loss(out["raw_feat"], out["recon_feat"])
-        if freeze:                      # GAN terms off in pretraining
-            gen = feat = torch.zeros_like(mel)
-        else:
-            self.disc.requires_grad_(False)
-            try:
-                gen, feat = generator_loss(self.disc, out["recon_audio"],
-                                           out["raw_audio"])
-            finally:
-                self.disc.requires_grad_(True)
-        total = (out["cm_loss"] * w["cm"] + out["cb_loss"] * w["cb"]
-                 + mel * w["mel"] + stft_l * w["stft"] + gen * w["gen"]
-                 + feat * w["feat"])
-        loss = total.mean()
-        self.opt.zero_grad()
-        loss.backward()
-        self.dp.average_grads(self.opt.params)
-        self.opt.step()
-        aux = {"cm_loss": out["cm_loss"].mean(),
-               "cb_loss": out["cb_loss"].mean(), "mel_loss": mel.mean(),
-               "stft_loss": stft_l.mean(), "gen_loss": gen.mean(),
-               "feat_loss": feat.mean(), "loss": loss}
-        return ({k: v.detach() for k, v in aux.items()},
-                out["recon_audio"].detach())
+        return self._generator_phases(x, num_streams, freeze)
 
     @reproducible
     def discriminator_step(self, recon: torch.Tensor, x: torch.Tensor,
@@ -113,20 +103,24 @@ class TrainerAdv(Trainer):
         and its update; nothing in a freeze step."""
         if freeze:
             return torch.zeros((), device=self.device)
-        d_loss = discriminator_loss(self.disc, recon, x).mean()
-        self.opt_disc.zero_grad()
-        d_loss.backward()
-        self.dp.average_grads(self.opt_disc.params)
-        self.opt_disc.step()
-        return d_loss.detach()
+        with annotate("disc.loss"):
+            d_loss = discriminator_loss(self.disc, recon, x).mean()
+            value = d_loss.detach()
+        with annotate("disc.backward"):
+            self.opt_disc.zero_grad()
+            d_loss.backward()
+            del d_loss                  # the graph's release, as the gen's
+        self._update(self.opt_disc, "disc")
+        return value
 
     def train_step(self, batch, num_streams: int, freeze: bool
                    ) -> Dict[str, torch.Tensor]:
         """One adversarial step on a batch ``(B, L)``; returns the batch
         means of the losses, on the device."""
-        x = torch.as_tensor(batch).to(self.device)
-        aux, recon = self.generator_step(x, num_streams, freeze)
-        aux["disc_loss"] = self.discriminator_step(recon, x, freeze)
+        with annotate("train.step"):
+            x = self._upload(batch)
+            aux, recon = self.generator_step(x, num_streams, freeze)
+            aux["disc_loss"] = self.discriminator_step(recon, x, freeze)
         return aux
 
     # ------------------------------------------------------------------

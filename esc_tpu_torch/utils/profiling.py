@@ -3,13 +3,55 @@
 - ``trace(logdir)``: a ``torch.profiler`` session, CPU and CUDA activities,
   that writes a Chrome / Perfetto trace of everything run inside into
   ``logdir``.
-- ``annotate(name)``: a labelled range inside a trace
-  (``torch.profiler.record_function``).
+- ``annotate(name)``: the port's one span primitive, a labelled range of
+  host work inside a trace.
 - ``StepTimer``: per-step or per-window step times with a mean, p50 and p95
   summary, the warm-up left out. On a CUDA device a step is timed by two
   CUDA events, read when :meth:`StepTimer.toc` or
   :meth:`StepTimer.toc_window` returns (the one place the timer waits for
   the card); on the CPU by the wall clock.
+
+Spans. The port labels its own phases with :func:`annotate`. A span's
+family is the part of its name before the first dot; on one host thread a
+span's parent is the span that encloses it:
+
+- ``codec``: ``codec.encode`` and ``codec.decode`` around a codec's
+  ``encode`` / ``decode``; inside them ``codec.upload`` (the host-to-device
+  copy of the input), ``codec.stft`` and ``codec.istft``;
+- ``encoder``: ``encoder.embed`` (patch embedding and the top layer), then
+  ``encoder.s{i}``, one per down-scaling layer;
+- ``vq``: ``vq.s{i}``, one per product VQ call of scale ``i`` (0 the
+  bottleneck), with the residual that feeds it and the sum that leaves it;
+- ``decoder``: ``decoder.s{i}``, one per up-scaling layer, and
+  ``decoder.post`` (the top layer and patch de-embedding). A cross-scale
+  ESC encode runs the decoder's layers too, between its scales;
+- ``serving``: in ``stream_map``, per batch, ``serving.upload``,
+  ``serving.launch`` (the call that enqueues the batch's work),
+  ``serving.download`` and ``serving.wait`` (the wait for the batch's copy
+  to the host);
+- ``train``: ``train.step`` around a training step, ``train.upload`` around
+  its batch's copy to the device;
+- ``gen`` and ``disc``: the generator's ``gen.forward``, ``gen.loss``
+  (every loss term, the adversarial ones included), ``gen.backward``
+  (``backward()`` and the release of the step's autograd graph) and
+  ``gen.update`` (gradient averaging over the ranks, clip and AdamW), and
+  the discriminator's ``disc.loss``, ``disc.backward`` and ``disc.update``.
+
+In a codec's ``encode`` and ``decode`` every operator runs under a stage
+span (``codec.upload``, ``codec.stft``, ``codec.istft``, ``encoder.*``,
+``vq.*``, ``decoder.*``), so the stages add up to the call.
+
+The clock. While a profiler records, a span is a
+``torch.profiler.record_function`` range: it lands in the same trace as the
+operators, the CUDA runtime calls and the kernels, on one clock, and a
+kernel belongs to the span in which its launch was called (the runtime
+event of the same correlation id). An idle stretch of the device is then
+named by the innermost span or operator that the host was in.
+
+The off path. With no profiler recording, :func:`annotate` makes one check
+(``torch.autograd._profiler_enabled()``) and returns a shared
+``contextlib.nullcontext()``: a span costs well under a microsecond and
+records nothing.
 """
 
 from __future__ import annotations
@@ -50,8 +92,15 @@ def trace(logdir: str):
             logdir, f"trace_{os.getpid()}_{n}.json"))
 
 
+_OFF = contextlib.nullcontext()
+
+
 def annotate(name: str):
-    """Label a region of host work inside an active :func:`trace`."""
+    """Label a region of host work inside an active profiler (a
+    :func:`trace` or any ``torch.profiler`` session); with none recording,
+    the shared no-op context."""
+    if not torch.autograd._profiler_enabled():
+        return _OFF
     return torch.profiler.record_function(name)
 
 
