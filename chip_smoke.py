@@ -10,6 +10,8 @@ Phases, each ending with one line that carries its seconds:
             process per source; the host compiler builds the range coder
 2. kernels  each CUDA kernel against its plain PyTorch version, on the
             card, at the shapes ESC-Base serving gives it (4 clips of 3 s;
+            the LayerNorm kernel at every call of one roundtrip, at ragged
+            row counts and on a misaligned input;
             the 25 s file of phase 3c whole and in its chunks; the DAC's
             1024 x 8 codebooks of phase 11) and at widths
             beyond them (heads split into groups, codebooks in K-tiles);
@@ -185,6 +187,13 @@ ATTN_RAGGED = [(1, 3, 15), (7, 6, 12), (301, 24, 16), (301, 3, 24)]
 # heads over a block's shared memory, or heads wider than 32)
 ATTN_WIDE = [(300, 24, 32), (300, 16, 64), (300, 8, 128), (7, 8, 128),
              (301, 5, 40), (50, 7, 128)]
+# the LayerNorm kernel against F.layer_norm: the order of the row sums and
+# rsqrt's last bits move a normalised value by a few units of its last
+# place times sqrt(C) (tests/test_torch_port_cuda.py's LN_TOL)
+LN_TOL = (1e-5, 1e-5)
+# rows that are no multiple of a tile or of the rows a warp reduces at
+# once, and a width beyond ESC's
+LN_RAGGED = [(1, 45), (31, 90), (4801, 96), (257, 1000)]
 # codebooks over a block's shared memory stream through it in K-tiles
 ARGMIN_WIDE = [(600, 1024, 64), (600, 1024, 128), (600, 1024, 256),
                (4801, 4096, 8), (601, 1023, 65)]
@@ -387,6 +396,60 @@ def main_path_calls(cfg: dict, batch: int, length: int, num_streams: int,
     return argmin, attn
 
 
+def layer_norm_calls(cfg: dict, batch: int, length: int, num_streams: int,
+                     forward: bool = False) -> list:
+    """The LayerNorm calls (rows, C) of the same pass as
+    :func:`main_path_calls`: the patch embedding's, two in each Swin block,
+    one in each patch merge (width 2C, H halved and rounded up) or split."""
+    hop = int(cfg["hop_len"] * cfg["sr"] * 1e-3)
+    depth = cfg["swin_depth"]
+    H = cfg["in_freq"] // cfg["patch_size"][0]
+    W = (length // hop + 1) // cfg["patch_size"][1]
+    h = cfg["h_dims"]
+    calls = []
+
+    def layer(Hl, C, scale=None):
+        calls.extend([(batch * Hl * W, C)] * (2 * depth))
+        if scale == "down":
+            calls.append((batch * ((Hl + 1) // 2) * W, 2 * C))
+        elif scale == "up":
+            calls.append((batch * Hl * W, C))
+
+    enc_H = [H]
+    for _ in range(len(h) - 1):
+        enc_H.append((enc_H[-1] + 1) // 2)
+    calls.append((batch * H * W, h[0]))             # patch embedding
+    layer(enc_H[0], h[0])                           # encoder pre_nn
+    for i in range(len(h) - 1):                     # encoder blocks
+        layer(enc_H[i], h[i], "down")
+    dec_h, dec_H = h[::-1], enc_H[::-1]
+    for i in range(0 if forward else num_streams - 2):  # decoder.encode's
+        layer(dec_H[i], dec_h[i], "up")
+    for i in range(len(h) - 1):                     # decoder.decode's blocks
+        layer(dec_H[i], dec_h[i], "up")
+    layer(dec_H[-1], dec_h[-1])                     # post_nn
+    return calls
+
+
+def norm_launches(attn: list, depth: int, runs: int) -> int:
+    """LayerNorm launches of a path of ``runs`` passes (encoder, then
+    decoder) whose attention calls are ``attn``: two in each Swin block
+    (one attention call each), one in each Swin layer that merges or splits
+    (all but a pass's pre_nn and post_nn), one patch embedding a pass; none
+    in a codec without Swin blocks."""
+    if not attn:
+        return 0
+    return 2 * len(attn) + (len(attn) // depth - 2 * runs) + runs
+
+
+def predicted(argmin: list, attn: list, runs: int,
+              depth: int = ESC_BASE["swin_depth"]) -> dict:
+    """Each kernel's launches on a path of ``runs`` passes with these
+    argmin and attention calls."""
+    return {"codebook_argmin": len(argmin), "window_attention": len(attn),
+            "layer_norm": norm_launches(attn, depth, runs)}
+
+
 def chunk_grid(cfg: dict, length: int, chunk_seconds: float,
                margin_seconds: float):
     """(samples per code frame, chunk, margin, code frames of a file of
@@ -531,6 +594,35 @@ def check_attention(kern, rng, dev, shapes, batch=BATCH):
     return max_err[torch.float32]
 
 
+def check_layer_norm(kern, rng, dev, shapes):
+    """The LayerNorm kernel against F.layer_norm at (rows, C) shapes, on a
+    contiguous input and on one 4 bytes past a 16-byte boundary; rows of
+    one value give the bias. Returns the largest difference."""
+    wrapper, plain = kern["layer_norm"]
+    worst = 0.0
+    for rows, C in shapes:
+        x = torch.randn(rows, C, device=dev) * 3 + 0.5
+        w = torch.rand(C, device=dev) + 0.5
+        b = torch.randn(C, device=dev)
+        flat = torch.empty(rows * C + 1, device=dev)
+        shifted = flat[1:].view(rows, C)
+        shifted.copy_(x)
+        want = plain(x, w, b, 1e-6)
+        for got in (wrapper(x, w, b, 1e-6), wrapper(shifted, w, b, 1e-6)):
+            torch.testing.assert_close(
+                got, want, atol=LN_TOL[0], rtol=LN_TOL[1],
+                msg=lambda m: f"layer_norm rows={rows} C={C}: {m}")
+            worst = max(worst, float((got - want).abs().max()))
+        flat = wrapper(torch.full((rows, C), 2.5, device=dev), w, b, 1e-6)
+        if not torch.equal(flat, b.expand(rows, C)):
+            raise RuntimeError(f"layer_norm rows={rows} C={C}: constant "
+                               "rows do not give the bias")
+    print(f"  layer_norm: {len(shapes)} shapes ({shapes[0]} .. "
+          f"{shapes[-1]}), aligned and shifted inputs, max abs diff "
+          f"{worst:.3g} (<= {LN_TOL[0]} + {LN_TOL[1]} |y|)", flush=True)
+    return worst
+
+
 def time_argmin(kern, rng, dev, calls, clock):
     """Times by ``clock`` of the kernel, its plain version and
     ``torch.cdist`` + ``argmin`` at each shape, summed over the calls of one
@@ -590,6 +682,31 @@ def time_attention(kern, rng, dev, calls, clock):
             tot[key] += n * t
         tot["bytes"] += n * nbytes
         tot["flops"] += n * G * nh * (4 * 256 * hd + 5 * 256)
+    return tot
+
+
+def time_layer_norm(kern, rng, dev, calls, clock):
+    """Times by ``clock`` of the kernel and of its plain version, which is
+    PyTorch's own call (``F.layer_norm``, ATen's kernels), summed over
+    ``calls`` (rows, C)."""
+    wrapper, plain = kern["layer_norm"]
+    keys = _KEYS[clock][:2]
+    tot = dict.fromkeys(keys + ("bytes", "flops"), 0.0)
+    for (rows, C), n in _count(calls).items():
+        x = torch.randn(rows, C, device=dev)
+        w = torch.rand(C, device=dev) + 0.5
+        b = torch.randn(C, device=dev)
+        times = (clocked(clock, lambda: wrapper(x, w, b, 1e-6),
+                         "layer_norm_kernel"),
+                 clocked(clock, lambda: plain(x, w, b, 1e-6)))
+        nbytes = 4 * (2 * rows * C + 2 * C)
+        print(f"  layer_norm rows={rows} C={C} x{n}: {clock} ms: kernel "
+              f"{times[0]:.4f} (bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f}),"
+              f" plain (F.layer_norm) {times[1]:.4f}", flush=True)
+        for key, t in zip(keys, times):
+            tot[key] += n * t
+        tot["bytes"] += n * nbytes
+        tot["flops"] += n * 8 * rows * C
     return tot
 
 
@@ -794,8 +911,8 @@ def check_cli(kern, dev, rng, tmp, chunked_calls):
                                                 str(Path(tmp) / "in"), 6,
                                                 CLI_CHUNK_SECONDS))
     per_s = (time.perf_counter() - start) / CLI_SECONDS
-    want = {"codebook_argmin": len(chunked_calls[0]),
-            "window_attention": len(chunked_calls[1])}
+    want = predicted(*chunked_calls, runs=len(chunk_lengths(
+        cfg["model"], L, CLI_CHUNK_SECONDS)))
     if launches != want:
         raise RuntimeError(f"chunked bf16 path: launches {launches}, the "
                            f"chunks phase 2 checked give {want}")
@@ -1051,8 +1168,9 @@ def check_eval(kern, dev, rng, tmp: Path, sweep_calls) -> dict:
     split = {k: round(v, 4) for k, v in metric_s.items()}
     split["the rest (forward, codes, host)"] = round(
         sweep_s - sum(metric_s.values()), 4)
-    want = {"codebook_argmin": sum(len(a) for a, _ in sweep_calls),
-            "window_attention": sum(len(t) for _, t in sweep_calls)}
+    want = predicted([c for a, _ in sweep_calls for c in a],
+                     [c for _, t in sweep_calls for c in t],
+                     runs=len(sweep_calls))
     if launches != want:
         raise RuntimeError(f"eval sweep launches {launches}, predicted "
                            f"{want}")
@@ -1243,8 +1361,7 @@ def check_train(kern, dev, rng, tmp: Path, val_calls) -> dict:
                            f"{losses}")
     _, launches = counted(kern, "the trainer's evaluation",
                           lambda: trainer.evaluate(FIXED_BATCH_STEPS))
-    want = {"codebook_argmin": len(val_calls[0]),
-            "window_attention": len(val_calls[1])}
+    want = predicted(*val_calls, runs=1)
     if launches != want:
         raise RuntimeError(f"evaluation launches {launches}, predicted "
                            f"{want}")
@@ -1447,8 +1564,7 @@ def check_adv(kern, dev, rng, tmp: Path, val_calls):
         raise RuntimeError(f"adversarial steps: {auxes}")
     _, launches = counted(kern, "the adversarial trainer's evaluation",
                           lambda: trainer.evaluate(ADV_STEPS))
-    want = {"codebook_argmin": len(val_calls[0]),
-            "window_attention": len(val_calls[1])}
+    want = predicted(*val_calls, runs=1)
     if launches != want:
         raise RuntimeError(f"evaluation launches {launches}, predicted "
                            f"{want}")
@@ -1683,8 +1799,8 @@ def check_ablation_roundtrips(kern, dev, rng) -> dict:
         model = make_model(cfg, name, seed=SEED, device=dev)
         plain = make_model(cfg, name, seed=SEED, device=dev, plain_ops=True)
         expect = {"codebook_argmin"} | (
-            {"window_attention"} if cfg["backbone"] == "transformer"
-            else set())
+            {"window_attention", "layer_norm"}
+            if cfg["backbone"] == "transformer" else set())
         model.roundtrip(x, num_streams=6)           # warm-up, not counted
         res = {"params": model.num_params(), "launches": {},
                "mismatch": {}, "wave_err": {}}
@@ -1693,8 +1809,7 @@ def check_ablation_roundtrips(kern, dev, rng) -> dict:
                 kern, f"{name} roundtrip ns={ns}",
                 lambda: model.roundtrip(x, num_streams=ns), expect=expect)
             calls = ablation_calls(cfg, name, BATCH, CLIP, ns)
-            want = {"codebook_argmin": len(calls[0]),
-                    "window_attention": len(calls[1])}
+            want = predicted(*calls, runs=1)
             if launches != want:
                 raise RuntimeError(f"{name} ns={ns}: launches {launches}, "
                                    f"predicted {want}")
@@ -1930,7 +2045,7 @@ def check_ablation_training(kern, dev, rng, tmp: Path) -> dict:
                          6, forward=True)
     _, launches = counted(kern, f"the {name} trainer's evaluation",
                           lambda: trainer.evaluate(ABLATION_STEPS))
-    want = {"codebook_argmin": len(val[0]), "window_attention": len(val[1])}
+    want = predicted(*val, runs=1)
     if launches != want:
         raise RuntimeError(f"{name} evaluation launches {launches}, "
                            f"predicted {want}")
@@ -2018,8 +2133,8 @@ def check_multicard(kern, dev, rng, eval_dirs: dict, eval_stats: dict):
         kern, f"encode/decode_chunked_dp over {n} card(s)",
         lambda: roundtrip(model, dp))
     argmin_calls, attn_calls, segments = chunked_dp_calls(m, L, n)
-    want = {"codebook_argmin": len(argmin_calls),
-            "window_attention": len(attn_calls)}
+    want = predicted(argmin_calls, attn_calls,
+                     runs=-(-segments // n) * n)
     if launches != want:
         raise RuntimeError(f"chunked dp launches {launches}, predicted "
                            f"{want} ({segments} segments)")
@@ -2491,12 +2606,17 @@ def profile_adv(trainer, x) -> dict:
 
 
 def time_kernels(kern, rng, dev, clock):
-    """Both kernels by ``clock`` at the calls of one roundtrip at ns 6."""
+    """Each kernel by ``clock`` at the calls of one roundtrip at ns 6 (the
+    LayerNorm kernel where the package has one)."""
     argmin_calls, attn_calls = main_path_calls(ESC_BASE, BATCH, CLIP, 6)
-    return {"codebook_argmin": time_argmin(kern, rng, dev, argmin_calls,
-                                           clock),
-            "window_attention": time_attention(kern, rng, dev, attn_calls,
-                                               clock)}
+    out = {"codebook_argmin": time_argmin(kern, rng, dev, argmin_calls,
+                                          clock),
+           "window_attention": time_attention(kern, rng, dev, attn_calls,
+                                              clock)}
+    if "layer_norm" in kern:
+        out["layer_norm"] = time_layer_norm(
+            kern, rng, dev, layer_norm_calls(ESC_BASE, BATCH, CLIP, 6), clock)
+    return out
 
 
 def time_ablations(kern, rng, dev) -> dict:
@@ -2639,6 +2759,9 @@ def main() -> int:
         KERNELS, rng, dev, sorted({(G, nh, hd) for G, nh, hd, _ in
                                    val_calls[1] + adv_val[1]}),
         batch=TRAIN_BATCH))
+    norm_calls = layer_norm_calls(ESC_BASE, BATCH, CLIP, 6)
+    ln_err = check_layer_norm(KERNELS, rng, dev,
+                              sorted(set(norm_calls)) + LN_RAGGED)
     # call times here, device times in phase 4: a profiler session slows
     # the host's later launches, which would show in phase 3
     timing = time_kernels(KERNELS, rng, dev, "call")
@@ -2664,7 +2787,12 @@ def main() -> int:
         check_main_path(model, plain_model, x, out, cli, tmp)
 
     per_rt = {"codebook_argmin": len(argmin_calls),
-              "window_attention": len(attn_calls)}
+              "window_attention": len(attn_calls),
+              "layer_norm": len(norm_calls)}
+    if norm_launches(attn_calls, ESC_BASE["swin_depth"], 1) != len(
+            norm_calls):
+        raise RuntimeError("the LayerNorm calls and the attention calls of "
+                           "a roundtrip disagree")
     for name in KERNELS:
         wrapper = KERNELS[name][0]
         wrapper.launches = 0
@@ -2759,11 +2887,14 @@ def main() -> int:
           f", library {dac_timing['library_ms']:.4f}, bound "
           f"{dac_bound[0]:.4f} ({dac_bound[1]})", flush=True)
     for name, tm in timing.items():
+        library = (f", library {tm['library_ms']:.4f} / "
+                   f"{tm['library_call_ms']:.4f}" if "library_ms" in tm
+                   else "")
         print(f"  {name} per roundtrip at ns=6, device / call ms: kernel "
               f"{tm['device_ms']:.4f} / {tm['call_ms']:.4f}, plain "
-              f"{tm['plain_ms']:.4f} / {tm['plain_call_ms']:.4f}, library "
-              f"{tm['library_ms']:.4f} / {tm['library_call_ms']:.4f}, bound "
-              f"{bound_ms(tm['bytes'], tm['flops'])[0]:.4f}", flush=True)
+              f"{tm['plain_ms']:.4f} / {tm['plain_call_ms']:.4f}{library}, "
+              f"bound {bound_ms(tm['bytes'], tm['flops'])[0]:.4f}",
+              flush=True)
     t0 = phase("4 profile", t0)
 
     summary = []
@@ -2771,7 +2902,9 @@ def main() -> int:
             ("codebook_argmin", "esc_tpu_torch/csrc/codebook_argmin.cu",
              "esc_tpu/ops/pallas/vq_kernels.py:56", argmin_err),
             ("window_attention", "esc_tpu_torch/csrc/window_attention.cu",
-             "esc_tpu/ops/pallas/attention_kernels.py:131", attn_err)):
+             "esc_tpu/ops/pallas/attention_kernels.py:131", attn_err),
+            ("layer_norm", "esc_tpu_torch/csrc/layer_norm.cu", None,
+             ln_err)):
         tm = timing[name]
         b_ms, b_by = bound_ms(tm["bytes"], tm["flops"])
         summary.append({
@@ -2781,8 +2914,9 @@ def main() -> int:
             "device_ms": tm["device_ms"], "call_ms": tm["call_ms"],
             "plain_ms": tm["plain_ms"], "plain_call_ms": tm["plain_call_ms"],
             "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": tm["library_ms"],
-            "library_call_ms": tm["library_call_ms"], "wide": wide[name],
+            "library_ms": tm.get("library_ms"),
+            "library_call_ms": tm.get("library_call_ms"),
+            "wide": wide.get(name),
             "eval_launches": evaluation["launches"][name],
             "adv_step_launches": adversarial["step_launches"][name],
             "adv_eval_launches": adversarial["eval_launches"][name],

@@ -46,6 +46,7 @@ import torch.nn as nn
 from ..device import resolve_device
 from ..io import esc_pad_length
 from ..modules.convolution import Convolution2D, refuse_training
+from ..modules.scale import LayerNorm
 from ..modules.transformer import FeedForward, WindowAttention
 from ..modules.vq import (Codebook, ProductResidualVectorQuantize,
                           ProductVectorQuantize)
@@ -273,7 +274,7 @@ class Codec:
         self.module = self.module_cls(**config)
         _init_parameters(self.module, torch.Generator().manual_seed(seed))
         for m in self.module.modules():
-            if isinstance(m, (WindowAttention, Codebook)):
+            if isinstance(m, (WindowAttention, Codebook, LayerNorm)):
                 m.plain_ops = plain_ops
             if isinstance(m, (WindowAttention, FeedForward, Convolution2D)):
                 m.compute_dtype = self.dtype

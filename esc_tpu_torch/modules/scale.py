@@ -4,7 +4,9 @@ patch merge and split.
 Port of ``esc_tpu/modules/scale.py``. Token tensors are ``(B, H*W, C)``,
 row-major over ``(H, W)``; spectra are ``(B, 2, F, T)`` (NCHW, PyTorch's
 convolution layout). Parameter names are the reference's torch keys.
-LayerNorm uses epsilon 1e-6, flax's default, as the JAX package does.
+LayerNorm uses epsilon 1e-6, flax's default, as the JAX package does;
+outside training it is the port's LayerNorm kernel
+(:mod:`esc_tpu_torch.ops.kernels.layer_norm`).
 """
 
 from __future__ import annotations
@@ -15,10 +17,30 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-__all__ = ["LN_EPS", "pixel_shuffle", "pixel_unshuffle", "PatchEmbed",
-           "PatchDeEmbed", "PatchMerge", "PatchSplit"]
+from ..ops.kernels import layer_norm
+
+__all__ = ["LN_EPS", "LayerNorm", "pixel_shuffle", "pixel_unshuffle",
+           "PatchEmbed", "PatchDeEmbed", "PatchMerge", "PatchSplit"]
 
 LN_EPS = 1e-6
+
+
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` over the last axis whose inference runs the
+    LayerNorm kernel: its parameters, state-dict keys and type checks are
+    ``nn.LayerNorm``'s.
+
+    ``plain_ops`` (set by the codec) and training mode run
+    ``F.layer_norm``, on any device, as ``WindowAttention`` does; the
+    kernel takes a contiguous copy of a strided input.
+    """
+
+    plain_ops = False
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.plain_ops or self.training:
+            return super().forward(x)
+        return layer_norm(x.contiguous(), self.weight, self.bias, self.eps)
 
 
 def pixel_unshuffle(x: torch.Tensor, factor: Sequence[int] = (2, 1)
@@ -50,7 +72,7 @@ class PatchEmbed(nn.Module):
         super().__init__()
         p = tuple(patch_size)
         self.proj = nn.Conv2d(in_chans, embed_dim, p, p)
-        self.norm = (nn.LayerNorm(embed_dim, eps=LN_EPS)
+        self.norm = (LayerNorm(embed_dim, eps=LN_EPS)
                      if backbone == "transformer" else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -87,7 +109,7 @@ class PatchMerge(nn.Module):
 
     def __init__(self, in_dim: int, out_dim: int):
         super().__init__()
-        self.norm = nn.LayerNorm(2 * in_dim, eps=LN_EPS)
+        self.norm = LayerNorm(2 * in_dim, eps=LN_EPS)
         self.down = nn.Linear(2 * in_dim, out_dim, bias=False)
 
     def forward(self, x: torch.Tensor, H: int) -> torch.Tensor:
@@ -104,7 +126,7 @@ class PatchSplit(nn.Module):
 
     def __init__(self, in_dim: int, out_dim: int):
         super().__init__()
-        self.norm = nn.LayerNorm(in_dim, eps=LN_EPS)
+        self.norm = LayerNorm(in_dim, eps=LN_EPS)
         self.up = nn.Linear(in_dim, out_dim * 2, bias=False)
 
     def forward(self, x: torch.Tensor, H: int) -> torch.Tensor:

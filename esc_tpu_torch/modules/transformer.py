@@ -10,7 +10,8 @@ projections is the fused window-attention kernel
 The Linear layers of the attention and the MLP compute in their module's
 ``compute_dtype`` (set by the codec: float32, or bfloat16 in the bf16
 serving mode) from float32 parameters, as the JAX package's
-``nn.Dense(dtype=...)`` does; LayerNorm and the residual stream stay
+``nn.Dense(dtype=...)`` does; LayerNorm (the LayerNorm kernel,
+:class:`esc_tpu_torch.modules.scale.LayerNorm`) and the residual stream stay
 float32 (``esc_tpu/modules/transformer.py:180-280``).
 """
 
@@ -26,7 +27,7 @@ import torch.nn.functional as F
 
 from ..ops.kernels import window_attention, window_attention_plain
 from ..ops.stft import frozen
-from .scale import LN_EPS, PatchMerge, PatchSplit
+from .scale import LN_EPS, LayerNorm, PatchMerge, PatchSplit
 
 __all__ = ["swin_attention_mask", "relative_position_index",
            "window_partition", "window_reverse", "WindowAttention",
@@ -177,9 +178,9 @@ class SwinBlock(nn.Module):
         super().__init__()
         self.window_size = window_size
         self.shift_size = shift_size
-        self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
+        self.norm1 = LayerNorm(dim, eps=LN_EPS)
         self.attn = WindowAttention(dim, window_size, num_heads)
-        self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
+        self.norm2 = LayerNorm(dim, eps=LN_EPS)
         self.mlp = FeedForward(dim, int(dim * mlp_ratio))
 
     def forward(self, x: torch.Tensor, H: int, W: int) -> torch.Tensor:

@@ -46,6 +46,8 @@ _SIGNATURES = {
                              _i, _vp], _i),
     "esc_window_attention": ([_vp, _i, _vp, _vp, _i, _vp, _i, _i, _i, _f,
                               _i, _i, _i, _i, _i, _i, _i, _i, _vp], _i),
+    "esc_layer_norm": ([_vp, _vp, _vp, _vp, _f, ctypes.POINTER(_i), _vp],
+                       _i),
     "esc_cuda_error_string": ([_i], ctypes.c_char_p),
 }
 
@@ -167,8 +169,10 @@ def on_device(dev: torch.device):
 
 
 def stream_of(dev: torch.device) -> int:
-    """The raw current CUDA stream of ``dev``, for a kernel's launch."""
-    return torch.cuda.current_stream(dev).cuda_stream
+    """The raw current CUDA stream of ``dev``, for a kernel's launch (read
+    without building a ``torch.cuda.Stream``, which costs about 10 us of
+    host time a launch)."""
+    return torch._C._cuda_getCurrentRawStream(dev.index)
 
 
 def check(err: int, what: str) -> None:

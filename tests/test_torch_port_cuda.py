@@ -11,7 +11,9 @@ import pytest
 import torch
 
 from esc_tpu_torch.models import ESC, make_model
+from esc_tpu_torch.modules.scale import LayerNorm
 from esc_tpu_torch.ops.kernels import (codebook_argmin, codebook_argmin_plain,
+                                       layer_norm, layer_norm_plain,
                                        window_attention,
                                        window_attention_plain)
 from esc_tpu_torch.ops.kernels.codebook_argmin import launch_plan
@@ -264,11 +266,13 @@ def test_model_on_kernels_matches_plain_model(rng, cuda):
     x = (0.1 * rng.standard_normal((2, 15920))).astype(np.float32)
     model = ESC(seed=2, device=cuda, **SMALL)
     plain = ESC(seed=2, device=cuda, plain_ops=True, **SMALL)
-    before = (codebook_argmin.launches, window_attention.launches)
+    before = (codebook_argmin.launches, window_attention.launches,
+              layer_norm.launches)
     codes, fs, recon = model.roundtrip(x, num_streams=6)
     torch.cuda.synchronize()
     assert codebook_argmin.launches > before[0]
     assert window_attention.launches > before[1]
+    assert layer_norm.launches == before[2] + 79  # 50 in encode, 29 decode
     pcodes, _ = plain.encode(x, num_streams=6)
     assert float((pcodes != codes).float().mean()) <= 2e-3
     torch.testing.assert_close(plain.decode(codes, fs), recon, atol=5e-4,
@@ -310,15 +314,38 @@ def test_bf16_model_on_the_card(rng, cuda):
     plain16 = ESC(seed=2, device=cuda, dtype=torch.bfloat16, plain_ops=True,
                   **SMALL)
     assert {p.dtype for p in m16.module.parameters()} == {torch.float32}
-    before = window_attention.launches
+    norms = [m for m in m16.module.modules() if isinstance(m, LayerNorm)]
+    seen = []
+    hooks = [m.register_forward_hook(
+        lambda mod, args, out: seen.append((mod, args[0], out)))
+        for m in norms]
+    before = (window_attention.launches, layer_norm.launches)
     c16, fs, r16 = m16.roundtrip(x, num_streams=6)
     torch.cuda.synchronize()
-    assert window_attention.launches > before
+    for h in hooks:
+        h.remove()
+    assert window_attention.launches > before[0]
+    assert layer_norm.launches == before[1] + len(seen) == before[1] + 79
     assert r16.dtype == torch.float32 and bool(torch.isfinite(r16).all())
     c32, _ = m32.encode(x, num_streams=6)
     agree = float((c16 == c32).float().mean())
     assert agree >= 0.8, f"bf16/fp32 code agreement {agree:.2%}"
-    # the kernels against the plain versions, both in bf16
+    # LayerNorm stays fp32 in the bf16 mode: the kernel against
+    # F.layer_norm on each of its calls' inputs
+    for mod, inp, out in seen:
+        assert inp.dtype == out.dtype == torch.float32
+        torch.testing.assert_close(
+            out, layer_norm_plain(inp, mod.weight, mod.bias, mod.eps),
+            **LN_TOL)
+    # the attention and argmin kernels against their plain versions, both
+    # in bf16, on one LayerNorm (F.layer_norm): in bf16 a change of the
+    # last bits anywhere flips codes by the percent (the plain model with
+    # the LayerNorm kernel agrees with the plain model on 89-97 % of the
+    # codes over 8 inputs on an H100), so the LayerNorm kernel is held
+    # to F.layer_norm call by call above
+    for m in norms:
+        m.plain_ops = True
+    c16, _ = m16.encode(x, num_streams=6)
     p16, _ = plain16.encode(x, num_streams=6)
     assert float((p16 == c16).float().mean()) >= 0.95
 
@@ -619,3 +646,90 @@ def test_kernels_on_a_second_card(rng, cuda):
             ours, window_attention_plain(qkv, bias, mask, nh, hd ** -0.5),
             atol=2e-5, rtol=1e-5)
     assert torch.cuda.current_device() == 0
+
+
+# LayerNorm widths of ESC-Base and ESC-Large (h_dims and the patch merges'
+# 2 h), and row counts from one row to the top scale's 16 x 64 x 300
+LN_WIDTHS = [45, 72, 90, 96, 144, 192, 288, 384]
+LN_ROWS = [1, 31, 4801, 307200]
+# Both sides compute in fp32 from the same values; they differ in the order
+# of the row sums (ATen's Welford against the kernel's mean, then squared
+# deviations) and in rsqrt's last bits. Each moves a normalised value of
+# size |z| <= 8 by a few units of its last place (1e-6) times sqrt(C) <= 20
+# at most: 1e-5 on |y| + 1e-5 bounds both with room.
+LN_TOL = dict(atol=1e-5, rtol=1e-5)
+
+
+def _ln_inputs(rng, rows, C, dev):
+    x = torch.tensor(rng.standard_normal((rows, C)) * 3 + 0.5,
+                     dtype=torch.float32, device=dev)
+    w = torch.tensor(rng.uniform(0.5, 1.5, C), dtype=torch.float32,
+                     device=dev)
+    b = torch.tensor(rng.standard_normal(C), dtype=torch.float32, device=dev)
+    return x, w, b
+
+
+@pytest.mark.parametrize("rows", LN_ROWS)
+@pytest.mark.parametrize("C", LN_WIDTHS)
+def test_layer_norm_kernel_matches_plain(rng, cuda, C, rows):
+    x, w, b = _ln_inputs(rng, rows, C, cuda)
+    n = layer_norm.launches
+    with torch.no_grad():
+        ours = layer_norm(x, w, b, 1e-6)
+    torch.cuda.synchronize()
+    assert layer_norm.launches == n + 1
+    torch.testing.assert_close(ours, layer_norm_plain(x, w, b, 1e-6),
+                               **LN_TOL)
+
+
+@pytest.mark.parametrize("C", [1, 3, 5, 33, 1000, 4096])
+def test_layer_norm_kernel_other_widths(rng, cuda, C):
+    x, w, b = _ln_inputs(rng, 257, C, cuda)
+    torch.testing.assert_close(layer_norm(x, w, b, 1e-6),
+                               layer_norm_plain(x, w, b, 1e-6), **LN_TOL)
+
+
+@pytest.mark.parametrize("C", [45, 90, 96])
+def test_layer_norm_kernel_misaligned_rows(rng, cuda, C):
+    """x 4 bytes past a 16-byte boundary: every tile's head and tail go 4
+    bytes at a time and the output's 16-byte pieces do not line up with the
+    buffer's; a 3-D batch of tokens, as the Swin blocks hand it."""
+    x, w, b = _ln_inputs(rng, 4801, C, cuda)
+    flat = torch.empty(x.numel() + 1, device=cuda)
+    xs = flat[1:].view(4801, C)
+    xs.copy_(x)
+    assert xs.is_contiguous() and xs.data_ptr() % 16 != 0
+    torch.testing.assert_close(layer_norm(xs, w, b, 1e-6),
+                               layer_norm_plain(x, w, b, 1e-6), **LN_TOL)
+    x3 = x[:4800].reshape(16, 300, C)
+    torch.testing.assert_close(layer_norm(x3, w, b, 1e-6),
+                               layer_norm_plain(x3, w, b, 1e-6), **LN_TOL)
+
+
+def test_layer_norm_kernel_constant_rows_give_beta(rng, cuda):
+    for C in LN_WIDTHS:
+        _, w, b = _ln_inputs(rng, 1, C, cuda)
+        x = torch.full((33, C), 2.5, device=cuda)
+        assert torch.equal(layer_norm(x, w, b, 1e-6), b.expand(33, C))
+
+
+def test_layer_norm_refusals(cuda):
+    C = 45
+    w, b = torch.ones(C, device=cuda), torch.zeros(C, device=cuda)
+    x = torch.randn(10, C, device=cuda)
+    with pytest.raises(TypeError):
+        layer_norm(x.double(), w.double(), b.double(), 1e-6)
+    with pytest.raises(ValueError):
+        layer_norm(torch.randn(C, 10, device=cuda).t(), w, b, 1e-6)
+    flat = torch.ones(C + 1, device=cuda)
+    assert flat[1:].data_ptr() % 16 != 0
+    with pytest.raises(ValueError):
+        layer_norm(x, flat[1:], b, 1e-6)
+    with pytest.raises(ValueError):
+        layer_norm(torch.randn(10, 4097, device=cuda),
+                   torch.ones(4097, device=cuda),
+                   torch.zeros(4097, device=cuda), 1e-6)
+    with pytest.raises(RuntimeError):
+        layer_norm(x.clone().requires_grad_(), w, b, 1e-6)
+    with torch.no_grad():
+        layer_norm(x.clone().requires_grad_(), w, b, 1e-6)
