@@ -19,6 +19,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ...utils.profiling import annotate
+
 __all__ = ["snake", "Snake1d", "WNConv1d", "WNConvTranspose1d",
            "conv_out_len", "convT_out_len", "ceil_div"]
 
@@ -29,14 +31,16 @@ def snake(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
 
 
 class Snake1d(nn.Module):
-    """Learnable per-channel snake activation, alpha ``(1, C, 1)`` from 1."""
+    """Learnable per-channel snake activation, alpha ``(1, C, 1)`` from 1;
+    each call in the span ``act.snake``."""
 
     def __init__(self, channels: int):
         super().__init__()
         self.alpha = nn.Parameter(torch.ones(1, channels, 1))
 
     def forward(self, x: torch.Tensor, padded: bool = True) -> torch.Tensor:
-        return snake(x, self.alpha)
+        with annotate("act.snake"):
+            return snake(x, self.alpha)
 
 
 class _WeightNorm(nn.Module):

@@ -29,6 +29,7 @@ import torch
 import torch.nn as nn
 
 from ...device import resolve_device
+from ...utils.profiling import annotate
 from .layers import Snake1d, WNConv1d, WNConvTranspose1d, _WeightNorm
 from .quantize import ResidualVectorQuantize, VectorQuantize
 
@@ -168,7 +169,18 @@ class Encoder(nn.Module):
         self.block = nn.ModuleList(block)
 
     def forward(self, x: torch.Tensor, padded: bool = True) -> torch.Tensor:
-        return _run(self.block, x, padded)
+        """``x (B, T)`` or ``(B, 1, T)``; spans ``encoder.embed`` (the
+        channel axis and the first conv), ``encoder.s{i}`` (one per
+        :class:`EncoderBlock`) and ``encoder.post`` (last snake and conv)."""
+        with annotate("encoder.embed"):
+            if x.dim() == 2:
+                x = x[:, None]
+            x = self.block[0](x, padded)
+        for i, block in enumerate(self.block[1:-2]):
+            with annotate(f"encoder.s{i}"):
+                x = block(x, padded)
+        with annotate("encoder.post"):
+            return _run(self.block[-2:], x, padded)
 
 
 class DecoderBlock(nn.Module):
@@ -189,7 +201,7 @@ class DecoderBlock(nn.Module):
 
 
 class Decoder(nn.Module):
-    """``(B, latent, T / hop)`` -> ``(B, 1, T)`` in [-1, 1]
+    """``(B, latent, T / hop)`` -> ``(B, T)`` in [-1, 1]
     (dac.py:115-144)."""
 
     def __init__(self, input_channel: int, channels: int,
@@ -205,7 +217,16 @@ class Decoder(nn.Module):
         self.model = nn.ModuleList(model)
 
     def forward(self, x: torch.Tensor, padded: bool = True) -> torch.Tensor:
-        return torch.tanh(_run(self.model, x, padded))
+        """Spans ``decoder.pre`` (the first conv), ``decoder.s{i}`` (one per
+        :class:`DecoderBlock`) and ``decoder.post`` (last snake, conv, tanh
+        and the channel axis dropped)."""
+        with annotate("decoder.pre"):
+            x = self.model[0](x, padded)
+        for i, block in enumerate(self.model[1:-2]):
+            with annotate(f"decoder.s{i}"):
+                x = block(x, padded)
+        with annotate("decoder.post"):
+            return torch.tanh(_run(self.model[-2:], x, padded))[:, 0]
 
 
 class DACModule(nn.Module):
@@ -237,16 +258,19 @@ class DACModule(nn.Module):
                padded: bool = True):
         """``audio (B, T)`` -> (z_q, codes, latents, commitment, codebook
         loss)."""
-        z = self.encoder(audio[:, None], padded)
-        return self.quantizer(z, n_quantizers)
+        z = self.encoder(audio, padded)
+        with annotate("vq.s0"):
+            return self.quantizer(z, n_quantizers)
 
     def decode(self, z: torch.Tensor, padded: bool = True) -> torch.Tensor:
         """Latent ``(B, latent, T')`` -> audio ``(B, T)``."""
-        return self.decoder(z, padded)[:, 0]
+        return self.decoder(z, padded)
 
     def decode_codes(self, codes: torch.Tensor,
                      padded: bool = True) -> torch.Tensor:
-        return self.decode(self.quantizer.from_codes(codes)[0], padded)
+        with annotate("vq.s0"):
+            z = self.quantizer.from_codes(codes)[0]
+        return self.decode(z, padded)
 
     def forward(self, audio: torch.Tensor, n_quantizers=None) -> dict:
         """The padded forward (dac.py:268-322): the input padded on the
@@ -375,12 +399,13 @@ class DAC:
 
     # -- serving -------------------------------------------------------------
     def _audio(self, x) -> torch.Tensor:
-        if not isinstance(x, torch.Tensor):
-            x = torch.from_numpy(np.array(x, np.float32))
-        x = x.to(self.device, torch.float32)
-        if x.dim() == 3:                      # the reference's (B, 1, T)
-            x = x[:, 0]
-        return x[None] if x.dim() == 1 else x
+        with annotate("codec.upload"):
+            if not isinstance(x, torch.Tensor):
+                x = torch.from_numpy(np.array(x, np.float32))
+            x = x.to(self.device, torch.float32)
+            if x.dim() == 3:                  # the reference's (B, 1, T)
+                x = x[:, 0]
+            return x[None] if x.dim() == 1 else x
 
     @torch.no_grad()
     def __call__(self, audio, n_quantizers: Optional[int] = None) -> dict:
@@ -396,15 +421,19 @@ class DAC:
     @torch.no_grad()
     def encode_codes(self, x, padded: bool = True) -> torch.Tensor:
         """Waveform ``(B, T)`` -> codes ``(B, N, T')`` on the device, every
-        stage."""
-        return self.module.encode(self._audio(x), None, padded)[1]
+        stage (span ``codec.encode``)."""
+        with annotate("codec.encode"):
+            return self.module.encode(self._audio(x), None, padded)[1]
 
     @torch.no_grad()
     def decode_codes(self, codes, padded: bool = True) -> torch.Tensor:
-        """Codes ``(B, N, T')`` -> waveform ``(B, T)`` on the device."""
-        codes = torch.as_tensor(np.asarray(codes) if not isinstance(
-            codes, torch.Tensor) else codes).to(self.device)
-        return self.module.decode_codes(codes, padded)
+        """Codes ``(B, N, T')`` -> waveform ``(B, T)`` on the device (span
+        ``codec.decode``)."""
+        with annotate("codec.decode"):
+            with annotate("codec.upload"):
+                codes = torch.as_tensor(np.asarray(codes) if not isinstance(
+                    codes, torch.Tensor) else codes).to(self.device)
+            return self.module.decode_codes(codes, padded)
 
     def compress(self, audio_or_path, win_duration: float = 1.0,
                  normalize_db_target: Optional[float] = -16,

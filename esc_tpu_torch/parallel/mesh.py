@@ -15,6 +15,9 @@ cpu``, one CPU process (gloo), and what SPMD does implicitly is explicit:
   package's gradient, so every rank reduces the same buffer;
 - logged values are averaged the same way (:meth:`DataParallel.mean`).
 
+Each exchange runs in the span ``dp.allreduce``
+(:mod:`esc_tpu_torch.utils.profiling`).
+
 With one rank and no process group every method is the identity.
 """
 
@@ -25,6 +28,8 @@ from typing import Iterable, Optional, Sequence
 
 import torch
 import torch.distributed as dist
+
+from ..utils.profiling import annotate
 
 __all__ = ["DataParallel", "init_distributed", "process_is_main"]
 
@@ -104,7 +109,8 @@ class DataParallel:
         grads = [torch.zeros_like(p) if p.grad is None else p.grad
                  for p in params]
         flat = torch.cat([g.reshape(-1) for g in grads])
-        dist.all_reduce(flat)
+        with annotate("dp.allreduce"):
+            dist.all_reduce(flat)
         flat /= self.num_devices
         for p, g in zip(params, flat.split([g.numel() for g in grads])):
             p.grad = g.view_as(p)
@@ -115,7 +121,8 @@ class DataParallel:
         if not self.active:
             return values
         out = values.detach().clone()
-        dist.all_reduce(out)
+        with annotate("dp.allreduce"):
+            dist.all_reduce(out)
         return out / self.num_devices
 
     def barrier(self) -> None:

@@ -19,12 +19,23 @@ span's parent is the span that encloses it:
   ``encode`` / ``decode``; inside them ``codec.upload`` (the host-to-device
   copy of the input), ``codec.stft`` and ``codec.istft``;
 - ``encoder``: ``encoder.embed`` (patch embedding and the top layer), then
-  ``encoder.s{i}``, one per down-scaling layer;
+  ``encoder.s{i}``, one per down-scaling layer; in the DAC
+  (``baselines/dac/model.py``) ``encoder.embed`` is the first conv,
+  ``encoder.s{i}`` one per ``EncoderBlock`` and ``encoder.post`` the last
+  snake and conv;
 - ``vq``: ``vq.s{i}``, one per product VQ call of scale ``i`` (0 the
   bottleneck), with the residual that feeds it and the sum that leaves it;
+  an RVQ codec's whole quantizer is ``vq.s0`` (the DAC's in its encode and
+  in ``from_codes``);
 - ``decoder``: ``decoder.s{i}``, one per up-scaling layer, and
   ``decoder.post`` (the top layer and patch de-embedding). A cross-scale
-  ESC encode runs the decoder's layers too, between its scales;
+  ESC encode runs the decoder's layers too, between its scales. The DAC's
+  are ``decoder.pre`` (the first conv), ``decoder.s{i}`` (one per
+  ``DecoderBlock``) and ``decoder.post`` (last snake, conv and tanh);
+- ``act``: ``act.snake`` around each call of the DAC's snake activation
+  (``baselines/dac/layers.py::Snake1d``), nested in the stage spans;
+- ``dp``: ``dp.allreduce`` around the exchange of ``DataParallel``'s
+  ``average_grads`` and ``mean`` over the ranks (``parallel/mesh.py``);
 - ``serving``: in ``stream_map``, per batch, ``serving.upload``,
   ``serving.launch`` (the call that enqueues the batch's work),
   ``serving.download`` and ``serving.wait`` (the wait for the batch's copy
@@ -37,8 +48,9 @@ span's parent is the span that encloses it:
   ``gen.update`` (gradient averaging over the ranks, clip and AdamW), and
   the discriminator's ``disc.loss``, ``disc.backward`` and ``disc.update``.
 
-In a codec's ``encode`` and ``decode`` every operator runs under a stage
-span (``codec.upload``, ``codec.stft``, ``codec.istft``, ``encoder.*``,
+In a codec's ``encode`` and ``decode`` (the DAC's ``encode_codes`` and
+``decode_codes``) every operator runs under a stage span
+(``codec.upload``, ``codec.stft``, ``codec.istft``, ``encoder.*``,
 ``vq.*``, ``decoder.*``), so the stages add up to the call.
 
 The clock. While a profiler records, a span is a
