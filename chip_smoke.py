@@ -120,7 +120,11 @@ Phases, each ending with one line that carries its seconds:
             ({"best_state": ...} with the EMA buffers) through
             load_torch_weights, the same codes; real-time factor, encode
             and decode ms, peak memory at 6 and 24 kbps
-4. profile  device time by kernel over one roundtrip, one training step and
+4. profile  a replayed roundtrip of phase 3's model at ns 6 (stage graphs,
+            esc_tpu_torch/utils/graphs.py): every kernel launched as
+            often as in the eager roundtrip, by the profiler's kernel
+            records, no wrapper called, codes and waveform bit for bit;
+            device time by kernel over one roundtrip, one training step and
             one adversarial step, each half of it apart (torch.profiler),
             the MRD spectrograms' device time; then each kernel's, its plain
             version's and the library call's device time at the shapes of
@@ -129,7 +133,8 @@ Phases, each ending with one line that carries its seconds:
 
 Phases 5-12 run before phase 4: a profiler session slows the host's later
 launches in the same process. Each path of phases 3-7 and 9-12 is driven
-with the launch counts set to 0 just before it and read just after; every
+eagerly (no stage graph captured or replayed, :func:`eager_codecs`), with
+the launch counts set to 0 just before it and read just after; every
 kernel of the path must have run in it (in the training steps of phases
 6, 7, 9 and 11 and in EnCodec, none may; in a conv codec's roundtrip and
 in the DAC, the attention may not).
@@ -151,6 +156,7 @@ machine with several cards.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -755,14 +761,29 @@ def time_wide(kern, rng, dev) -> dict:
 
 
 # ------------------------------------------------------------- phase 3
+@contextlib.contextmanager
+def eager_codecs():
+    """Every codec call eager meanwhile: no stage graph is captured or
+    replayed (``esc_tpu_torch/utils/graphs.py``), so that each kernel's
+    launch count is its wrapper's own count of the path's launches."""
+    from esc_tpu_torch.models.codecs import Codec
+    graphs = Codec._graphs
+    Codec._graphs = lambda self: None
+    try:
+        yield
+    finally:
+        Codec._graphs = graphs
+
+
 def counted(kern, what: str, fn, ran: bool = True, expect=None):
-    """Run ``fn`` with every launch count set to 0 just before and read
-    just after; raise unless every kernel ran (with ``ran=False``: unless
-    none did; with ``expect``, a set of names: unless those ran and no
-    other did). Returns (result, counts)."""
+    """Run ``fn`` eagerly with every launch count set to 0 just before and
+    read just after; raise unless every kernel ran (with ``ran=False``:
+    unless none did; with ``expect``, a set of names: unless those ran and
+    no other did). Returns (result, counts)."""
     for wrapper, _ in kern.values():
         wrapper.launches = 0
-    result = fn()
+    with eager_codecs():
+        result = fn()
     torch.cuda.synchronize()
     counts = {name: wrapper.launches for name, (wrapper, _) in kern.items()}
     print(f"  launches on {what}: {counts}", flush=True)
@@ -982,6 +1003,61 @@ def drive_main_path(model, x, compress_file, tmp):
                         os.path.join(tmp, "out"), num_streams=6)
     torch.cuda.synchronize()
     return out, cli
+
+
+# the kernels' names, as the profiler reports them, by wrapper
+KERNEL_NAMES = {"codebook_argmin": "codebook_argmin",
+                "window_attention": "window_attention",
+                "layer_norm": "layer_norm_kernel"}
+
+
+def check_replay(model, x, per_rt: dict) -> dict:
+    """A replayed roundtrip of ``model`` at ns 6 (stage graphs): in a
+    profiler window of its own, each kernel runs as often as an eager
+    roundtrip launches it (``per_rt``), by the kernel records the profiler
+    takes of the graphs' kernels; no wrapper is called; encode and decode
+    each replay one chain; codes and waveform equal the eager ones bit
+    for bit. Returns the kernel counts."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from esc_tpu_torch.ops.kernels import KERNELS
+    with eager_codecs():
+        want = model.roundtrip(x, num_streams=6)
+    for _ in range(2):              # a key's first call (or its capture)
+        model.roundtrip(x, num_streams=6)
+    chains = model._graphs().chains
+    replays = {key: c.replays for key, c in chains.items()}
+    before = {name: w.launches for name, (w, _) in KERNELS.items()}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        got = model.roundtrip(x, num_streams=6)
+        torch.cuda.synchronize()
+    ran = {name: sum(e.count for e in prof.key_averages()
+                     if _on_device(e) and sub in e.key and "at::" not in e.key)
+           for name, sub in KERNEL_NAMES.items()}
+    called = {name: w.launches - before[name]
+              for name, (w, _) in KERNELS.items()}
+    replayed = [c for key, c in chains.items()
+                if c.replays != replays.get(key)]
+    held = {name: sum(c.kernels.get(name, 0) for c in replayed)
+            for name in KERNELS}
+    print(f"  a replayed roundtrip at ns=6: kernels run {ran} (profiler), "
+          f"wrappers called {called}, {len(replayed)} chains replayed, "
+          f"holding {held}", flush=True)
+    if ran != per_rt or any(called.values()) or held != per_rt:
+        raise RuntimeError(f"a replayed roundtrip ran {ran}, wrappers "
+                           f"called {called}, its chains hold {held}; an "
+                           f"eager one launches {per_rt}")
+    if len(replayed) != 2 or any(c.replays != replays.get(key, 0) + 1
+                                 for key, c in chains.items()
+                                 if c in replayed):
+        raise RuntimeError("the roundtrip did not replay encode and decode "
+                           "once each")
+    if not (torch.equal(got[0], want[0]) and tuple(got[1]) == tuple(want[1])
+            and torch.equal(got[2], want[2])):
+        raise RuntimeError("a replayed roundtrip differs from the eager one")
+    return ran
 
 
 def check_main_path(model, plain_model, x, out, cli, tmp):
@@ -2777,7 +2853,8 @@ def main() -> int:
         torch.cuda.synchronize()
         for wrapper, _ in KERNELS.values():
             wrapper.launches = 0
-        out, cli = drive_main_path(model, x, compress_file, tmp)
+        with eager_codecs():
+            out, cli = drive_main_path(model, x, compress_file, tmp)
         launches = {name: wrapper.launches
                     for name, (wrapper, _) in KERNELS.items()}
         print(f"  launches on the main path: {launches}", flush=True)
@@ -2796,7 +2873,8 @@ def main() -> int:
     for name in KERNELS:
         wrapper = KERNELS[name][0]
         wrapper.launches = 0
-    model.roundtrip(x, num_streams=6)
+    with eager_codecs():
+        model.roundtrip(x, num_streams=6)
     got = {name: w.launches for name, (w, _) in KERNELS.items()}
     if got != per_rt:
         raise RuntimeError(f"launches per roundtrip {got}, expected {per_rt}")
@@ -2871,6 +2949,7 @@ def main() -> int:
                f"{', '.join(map(str, ENCODEC_BANDWIDTHS))} kbps, card vs "
                "CPU, a release-format file ok")
 
+    replay = check_replay(model, x, per_rt)
     for what, fn in (("one roundtrip", lambda: model.roundtrip(
             x, num_streams=6)), ("one training step (phase 6)", train_step)):
         profile_once(what, fn)
@@ -2926,7 +3005,8 @@ def main() -> int:
             "rvq_launches": {ns: {path: counts[name] for path, counts in
                                   by_path.items()} for ns, by_path in
                              ablations["rvq"]["launches"].items()},
-            "chunked_dp_launches": dp_launches[name]})
+            "chunked_dp_launches": dp_launches[name],
+            "replay_launches": replay[name]})
     summary[0]["dac"] = {
         "shape": f"{len(dac_file_calls)} x {dac_file_calls[0]} per "
                  f"{DAC_FILE_SECONDS} s compress",

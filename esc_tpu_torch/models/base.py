@@ -18,7 +18,7 @@ import torch.nn as nn
 from ..modules.convolution import ConvolutionLayer, ConvolutionStage
 from ..modules.scale import PatchDeEmbed, PatchEmbed
 from ..modules.transformer import TransformerLayer
-from ..utils.profiling import annotate
+from ..utils.graphs import stage
 
 __all__ = ["Encoder", "Decoder", "max_bps", "BACKBONES", "backbone_layers"]
 
@@ -83,14 +83,17 @@ class Encoder(nn.Module):
                 ) -> Tuple[List[torch.Tensor], Tuple[int, int]]:
         H = x_feat.shape[2] // self.patch_size[0]
         W = x_feat.shape[3] // self.patch_size[1]
-        with annotate("encoder.embed"):
-            x, H, W = self.pre_nn(self.patch_embed(x_feat), H, W)
+        x, H, W = stage("encoder.embed", self.embed, x_feat, H, W)
         enc_hs = [x]
         for i, blk in enumerate(self.blocks):
-            with annotate(f"encoder.s{i}"):
-                x, H, W = blk(x, H, W)
+            x, H, W = stage(f"encoder.s{i}", blk, x, H, W)
             enc_hs.append(x)
         return enc_hs, (H, W)
+
+    def embed(self, x_feat: torch.Tensor, H: int, W: int
+              ) -> Tuple[torch.Tensor, int, int]:
+        """PatchEmbed and ``pre_nn``: the spectrum to the top scale."""
+        return self.pre_nn(self.patch_embed(x_feat), H, W)
 
 
 class Decoder(nn.Module):
@@ -125,12 +128,10 @@ class Decoder(nn.Module):
     def up(self, i: int, x: torch.Tensor, H: int, W: int
            ) -> Tuple[torch.Tensor, int, int]:
         """Up-scaling layer ``i``."""
-        with annotate(f"decoder.s{i}"):
-            return self.blocks[i](x, H, W)
+        return stage(f"decoder.s{i}", self.blocks[i], x, H, W)
 
     def post(self, x: torch.Tensor, H: int, W: int) -> torch.Tensor:
         """``post_nn`` and PatchDeEmbed: the top scale's tokens or maps to
         the spectrum ``(B, 2, F, T)``."""
-        with annotate("decoder.post"):
-            x, H, W = self.post_nn(x, H, W)
-            return self.patch_deembed(x)
+        return stage("decoder.post", lambda: self.patch_deembed(
+            self.post_nn(x, H, W)[0]))

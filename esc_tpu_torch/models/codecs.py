@@ -51,6 +51,7 @@ from ..modules.transformer import FeedForward, WindowAttention
 from ..modules.vq import (Codebook, ProductResidualVectorQuantize,
                           ProductVectorQuantize)
 from ..ops.stft import audio_reconstruct, spec_transform
+from ..utils.graphs import StageGraphs, stage
 from ..utils.profiling import annotate
 from .base import Decoder, Encoder, max_bps
 from .csrvq import CrossScaleRVQDecoder
@@ -69,16 +70,14 @@ IGNORED_PARTS = ("relative_position_index", "num_batches_tracked",
 
 def _stft(module: nn.Module, x: torch.Tensor) -> torch.Tensor:
     """The codec module's spectrum of the waveform ``x``."""
-    with annotate("codec.stft"):
-        return spec_transform(x, module.in_freq, module.win_len,
-                              module.hop_len, module.sr)
+    return stage("codec.stft", spec_transform, x, module.in_freq,
+                 module.win_len, module.hop_len, module.sr)
 
 
 def _istft(module: nn.Module, feat: torch.Tensor) -> torch.Tensor:
     """The codec module's waveform of the spectrum ``feat``."""
-    with annotate("codec.istft"):
-        return audio_reconstruct(feat, module.in_freq, module.win_len,
-                                 module.hop_len, module.sr)
+    return stage("codec.istft", audio_reconstruct, feat, module.in_freq,
+                 module.win_len, module.hop_len, module.sr)
 
 
 class ESCModule(nn.Module):
@@ -202,9 +201,8 @@ class RVQModule(nn.Module):
             refuse_training()
         x_feat = _stft(self, x)
         enc_hs, feat_shape = self.encoder(x_feat)
-        with annotate("vq.s0"):
-            out = self.quantizers(enc_hs[-1], num_streams,
-                                  freeze_vq=freeze_codebook)
+        out = stage("vq.s0", lambda: self.quantizers(
+            enc_hs[-1], num_streams, freeze_vq=freeze_codebook))
         recon_feat = self.decoder(out["z_q"], feat_shape)
         recon_x = _istft(self, recon_feat)
         return {"cm_loss": out["cm_loss"], "cb_loss": out["cb_loss"],
@@ -214,14 +212,14 @@ class RVQModule(nn.Module):
     def encode(self, x: torch.Tensor, num_streams: int) -> torch.Tensor:
         """Waveform ``(B, L)`` -> codes ``(B, num_streams, groups, T)``."""
         enc_hs, _ = self.encoder(_stft(self, x))
-        with annotate("vq.s0"):
-            return self.quantizers.encode(enc_hs[-1], num_streams)
+        return stage("vq.s0", lambda: self.quantizers.encode(enc_hs[-1],
+                                                             num_streams))
 
     def decode(self, codes: torch.Tensor, feat_shape: Tuple[int, int]
                ) -> torch.Tensor:
         """Codes -> waveform ``(B, (T-1)*hop)``."""
-        with annotate("vq.s0"):
-            z_q = self.quantizers.decode(codes, self.decoder.latent_dims)
+        z_q = stage("vq.s0", self.quantizers.decode, codes,
+                    self.decoder.latent_dims)
         return _istft(self, self.decoder(z_q, feat_shape))
 
 
@@ -260,6 +258,12 @@ class Codec:
     compute dtype of the Swin blocks' Linear layers and of the convolution
     backbone's convolutions (float32, or bfloat16 for the bf16 serving
     mode; see the module docstring).
+
+    On a CUDA device, with the kernels and in eval mode, :meth:`encode`
+    and :meth:`decode` replay a repeated call (the same shapes, streams
+    and dtype) as one captured CUDA graph per stage
+    (:mod:`esc_tpu_torch.utils.graphs`): a call's first run is eager, its
+    second runs eagerly and captures, the later ones replay.
     """
 
     module_cls: type = None           # the subclass's codec module
@@ -271,6 +275,7 @@ class Codec:
         self.config = dict(config)
         self.device = resolve_device(device)
         self.dtype = _compute_dtype(dtype)
+        self.plain_ops = plain_ops
         self.module = self.module_cls(**config)
         _init_parameters(self.module, torch.Generator().manual_seed(seed))
         for m in self.module.modules():
@@ -338,12 +343,34 @@ class Codec:
                 f"num_streams must be in 1..{self.max_streams} "
                 f"(got {num_streams}); bitrate = num_streams * 1.5 kbps")
 
-    def _audio(self, x) -> torch.Tensor:
+    def _audio(self, x, out: Optional[torch.Tensor] = None
+               ) -> torch.Tensor:
+        """The waveform ``x`` as float32 ``(B, L)`` on the device, or
+        copied into ``out``."""
         with annotate("codec.upload"):
             if not isinstance(x, torch.Tensor):
                 x = torch.from_numpy(np.array(x, np.float32))
-            x = x.to(self.device, torch.float32)
-            return x[None] if x.dim() == 1 else x
+            x = x[None] if x.dim() == 1 else x
+            return x.to(self.device, torch.float32) if out is None \
+                else out.copy_(x)
+
+    def _codes(self, codes: torch.Tensor,
+               out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``codes`` on the device, or copied into ``out``."""
+        with annotate("codec.upload"):
+            return codes.to(self.device) if out is None else out.copy_(codes)
+
+    def _graphs(self) -> Optional[StageGraphs]:
+        """The stage graphs of this codec's module where its calls may
+        replay them (a CUDA device, the kernels, eval mode), else None."""
+        if (self.device.type != "cuda" or self.plain_ops
+                or self.module.training):
+            return None
+        graphs = self.__dict__.get("_stage_graphs")
+        if graphs is None or graphs.module is not self.module:
+            graphs = self._stage_graphs = StageGraphs(self.module,
+                                                      self.device)
+        return graphs
 
     @torch.no_grad()
     def encode(self, x, num_streams: int = 6
@@ -352,19 +379,34 @@ class Codec:
         device, feat_shape)."""
         with annotate("codec.encode"):
             self._check_streams(num_streams)
-            x = self._audio(x)
-            return (self.module.encode(x, num_streams),
-                    self.feat_shape(x.shape[-1]))
+            graphs = self._graphs()
+            if graphs is None:
+                x = self._audio(x)
+                return (self.module.encode(x, num_streams),
+                        self.feat_shape(x.shape[-1]))
+            shape = tuple(np.shape(x))
+            shape = (1,) + shape if len(shape) == 1 else shape
+            codes = graphs.call(
+                ("encode", shape, num_streams, self.dtype), shape,
+                torch.float32, lambda out: self._audio(x, out),
+                lambda x: self.module.encode(x, num_streams))
+            return codes, self.feat_shape(shape[-1])
 
     @torch.no_grad()
     def decode(self, codes, feat_shape: Tuple[int, int]) -> torch.Tensor:
         """(codes, feat_shape) -> waveform ``(B, L)`` on the device."""
         with annotate("codec.decode"):
-            with annotate("codec.upload"):
-                if not isinstance(codes, torch.Tensor):
-                    codes = torch.from_numpy(np.array(codes))
-                codes = codes.to(self.device)
-            return self.module.decode(codes, tuple(feat_shape))
+            if not isinstance(codes, torch.Tensor):
+                codes = torch.from_numpy(np.array(codes))
+            feat_shape = tuple(feat_shape)
+            graphs = self._graphs()
+            if graphs is None:
+                return self.module.decode(self._codes(codes), feat_shape)
+            shape = tuple(codes.shape)
+            return graphs.call(
+                ("decode", shape, codes.dtype, feat_shape, self.dtype), shape,
+                codes.dtype, lambda out: self._codes(codes, out),
+                lambda codes: self.module.decode(codes, feat_shape))
 
     def roundtrip(self, x, num_streams: int = 6):
         """Waveform -> (codes, feat_shape, reconstruction)."""

@@ -18,7 +18,7 @@ from typing import List, Tuple
 
 import torch
 
-from ..utils.profiling import annotate
+from ..utils.graphs import stage
 from .base import Decoder
 
 __all__ = ["CrossScaleRVQDecoder"]
@@ -59,44 +59,51 @@ class CrossScaleRVQDecoder(Decoder):
         returns ``(dec', cm_loss, cb_loss, codes)``."""
         if not self.training and not transmit:
             return dec, 0.0, 0.0, None
-        with annotate(f"vq.s{scale}"):
+
+        def fuse():
             out = vq(enc - dec, freeze_vq=freeze_vq)
             live = float(transmit)
             return (out["z_q"] * live + dec, out["cm_loss"] * live,
                     out["cb_loss"] * live, out["codes"])
+        return stage(f"vq.s{scale}", fuse)
 
     def encode(self, enc_hs: List[torch.Tensor], num_streams: int,
                quantizers, feat_shape: Tuple[int, int]) -> torch.Tensor:
         """Encoder states -> codes ``(B, num_streams, groups, T)``; runs only
         the scales that are transmitted."""
         H, W = feat_shape
-        with annotate("vq.s0"):
-            code0 = quantizers[0].encode(enc_hs[-1])
-            if num_streams == 1:
-                return code0[:, None]
-            codes, dec = [code0], quantizers[0].decode(code0,
-                                                       self.latent_dims)
-        for i in range(num_streams - 1):
-            with annotate(f"vq.s{i + 1}"):
-                code_i = quantizers[i + 1].encode(enc_hs[-1 - i] - dec)
-                codes.append(code_i)
-                if len(codes) == num_streams:      # the last scale sent
-                    return torch.stack(codes, dim=1)
-                dec = quantizers[i + 1].decode(code_i, self.latent_dims) \
-                    + dec
-            dec, H, W = self.up(i, dec, H, W)
+        codes: List[torch.Tensor] = []
+
+        def scale(i, dec):
+            """Scale ``i``'s codes and the decoder state with them added;
+            the last scale sent stacks every scale's codes instead."""
+            code = quantizers[i].encode(enc_hs[-1] if i == 0
+                                        else enc_hs[-i] - dec)
+            if i == num_streams - 1:
+                return torch.stack(codes + [code], dim=1), None
+            z_q = quantizers[i].decode(code, self.latent_dims)
+            return code, z_q if i == 0 else z_q + dec
+
+        dec = None
+        for i in range(num_streams):
+            code, dec = stage(f"vq.s{i}", scale, i, dec)
+            if dec is None:
+                return code
+            codes.append(code)
+            if i > 0:
+                dec, H, W = self.up(i - 1, dec, H, W)
 
     def decode(self, codes: torch.Tensor, quantizers,
                feat_shape: Tuple[int, int]) -> torch.Tensor:
         """Codes ``(B, s, groups, T)`` -> spectrum ``(B, 2, F, T)``."""
         H, W = feat_shape
         num_streams = codes.shape[1]
-        with annotate("vq.s0"):
-            dec = quantizers[0].decode(codes[:, 0], self.latent_dims)
+        dec = stage("vq.s0", lambda: quantizers[0].decode(
+            codes[:, 0], self.latent_dims))
         for i in range(len(self.blocks)):
             if i < num_streams - 1:
-                with annotate(f"vq.s{i + 1}"):
-                    dec = quantizers[i + 1].decode(codes[:, i + 1],
-                                                    self.latent_dims) + dec
+                dec = stage(f"vq.s{i + 1}", lambda i, dec: quantizers[
+                    i + 1].decode(codes[:, i + 1], self.latent_dims) + dec,
+                    i, dec)
             dec, H, W = self.up(i, dec, H, W)
         return self.post(dec, H, W)

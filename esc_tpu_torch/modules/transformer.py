@@ -27,6 +27,7 @@ import torch.nn.functional as F
 
 from ..ops.kernels import window_attention, window_attention_plain
 from ..ops.stft import frozen
+from ..utils.graphs import capturing, hold
 from .scale import LN_EPS, LayerNorm, PatchMerge, PatchSplit
 
 __all__ = ["swin_attention_mask", "relative_position_index",
@@ -54,10 +55,17 @@ def swin_attention_mask(H: int, W: int, window: int, shift: int
 
 
 @functools.lru_cache(maxsize=64)
-def _mask_on(H: int, W: int, window: int, shift: int,
-             device: torch.device) -> torch.Tensor:
+def _mask_cached(H: int, W: int, window: int, shift: int,
+                 device: torch.device) -> torch.Tensor:
     return torch.tensor(swin_attention_mask(H, W, window, shift),
                         device=device)
+
+
+def _mask_on(H: int, W: int, window: int, shift: int,
+             device: torch.device) -> torch.Tensor:
+    """The SW-MSA mask on ``device``, uploaded once; a capturing chain of
+    stage graphs keeps it (:func:`esc_tpu_torch.utils.graphs.hold`)."""
+    return hold(_mask_cached(H, W, window, shift, device))
 
 
 @functools.lru_cache(maxsize=16)
@@ -79,16 +87,18 @@ def _linear(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype
     (fp32 accumulation in bf16 products), the parameters kept as they are.
     Outside autograd the cast weight and bias are kept on the layer until
     the parameters change (a new version or storage), so that serving
-    casts only activations."""
+    casts only activations; a graph being captured casts them itself, so
+    that its replays follow the parameters."""
     if dtype == torch.float32 and x.dtype == torch.float32:
         return layer(x)
     w, b = layer.weight, layer.bias
     key = (dtype, w.data_ptr(), w._version,
            None if b is None else (b.data_ptr(), b._version))
     cast = getattr(layer, "_cast", None)
-    if cast is None or cast[0] != key or torch.is_grad_enabled():
+    fresh = torch.is_grad_enabled() or capturing()
+    if cast is None or cast[0] != key or fresh:
         cast = (key, w.to(dtype), None if b is None else b.to(dtype))
-        if not torch.is_grad_enabled():
+        if not fresh:
             layer._cast = cast
     return F.linear(x.to(dtype), cast[1], cast[2])
 

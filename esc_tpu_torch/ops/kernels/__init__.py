@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels of the port, each beside its plain PyTorch
 version. A wrapper launches its kernel for CUDA tensors and counts the
 launch in its ``launches`` attribute; for CPU tensors it runs the plain
-version."""
+version. A replayed stage graph (:mod:`esc_tpu_torch.utils.graphs`) calls
+no wrapper, so it counts nothing there: its chain counts its replays."""
 
 from .codebook_argmin import codebook_argmin, codebook_argmin_plain
 from .layer_norm import layer_norm, layer_norm_plain

@@ -18,6 +18,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils.graphs import hold
+
 __all__ = ["stft", "istft", "spec_transform", "audio_reconstruct"]
 
 
@@ -68,14 +70,20 @@ def _ola_envelope(n_fft: int, win_length: int, hop: int, T: int) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=64)
+def _on_device_cached(make, args: tuple, index: int, device: torch.device
+                      ) -> torch.Tensor:
+    a = make(*args)
+    return torch.tensor(a if index < 0 else a[index], device=device)
+
+
 def _on_device(make, args: tuple, index: int, device: torch.device
                ) -> torch.Tensor:
     """``make(*args)[index]`` (or ``make(*args)`` where ``index`` is -1), a
     numpy constant, as a tensor kept on ``device``: it is uploaded once,
     not at every call. On the CPU too the tensor is a copy, so that it
-    shares no memory with the cached numpy array."""
-    a = make(*args)
-    return torch.tensor(a if index < 0 else a[index], device=device)
+    shares no memory with the cached numpy array. A capturing chain of
+    stage graphs keeps it (:func:`esc_tpu_torch.utils.graphs.hold`)."""
+    return hold(_on_device_cached(make, args, index, device))
 
 
 def stft(x: torch.Tensor, n_fft: int = 382, win_length: int = 320,

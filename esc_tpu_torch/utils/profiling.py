@@ -17,7 +17,12 @@ span's parent is the span that encloses it:
 
 - ``codec``: ``codec.encode`` and ``codec.decode`` around a codec's
   ``encode`` / ``decode``; inside them ``codec.upload`` (the host-to-device
-  copy of the input), ``codec.stft`` and ``codec.istft``;
+  copy of the input), ``codec.stft`` and ``codec.istft``; and, where the
+  call runs on stage graphs (:mod:`.graphs`), ``codec.capture`` around the
+  capture of its chain, after the call's eager stages (nothing in it runs
+  on the device), or ``codec.replay`` around a replayed call (the walk of
+  its stages and the copy of its result), one a call, each after the
+  call's ``codec.upload``;
 - ``encoder``: ``encoder.embed`` (patch embedding and the top layer), then
   ``encoder.s{i}``, one per down-scaling layer; in the DAC
   (``baselines/dac/model.py``) ``encoder.embed`` is the first conv,
@@ -51,7 +56,12 @@ span's parent is the span that encloses it:
 In a codec's ``encode`` and ``decode`` (the DAC's ``encode_codes`` and
 ``decode_codes``) every operator runs under a stage span
 (``codec.upload``, ``codec.stft``, ``codec.istft``, ``encoder.*``,
-``vq.*``, ``decoder.*``), so the stages add up to the call.
+``vq.*``, ``decoder.*``), so the stages add up to the call. On a replayed
+call the stage spans sit inside ``codec.replay`` and each holds one graph
+launch (``cudaGraphLaunch``) in place of its operators; the kernels the
+graph runs keep that launch's correlation id, so they still belong to
+the stage. Only the result's copy out of the graphs' memory runs under
+``codec.replay`` itself.
 
 The clock. While a profiler records, a span is a
 ``torch.profiler.record_function`` range: it lands in the same trace as the

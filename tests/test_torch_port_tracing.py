@@ -369,6 +369,26 @@ def _request_trace():
     return ev
 
 
+def _replay_trace():
+    """Two requests of an encode and a decode each; three of the four
+    calls replayed their stage graphs (a graph launch under a stage span),
+    the first encode ran eagerly."""
+    ev = _Events()
+    for r in range(2):
+        t0 = r * 10_000
+        ev.events += [_span("codec.encode", t0, 2_000),
+                      _span("codec.upload", t0 + 10, 100),
+                      _span("codec.decode", t0 + 3_000, 2_000),
+                      _span("codec.upload", t0 + 3_010, 100),
+                      _span("codec.replay", t0 + 3_200, 1_500),
+                      _span("codec.istft", t0 + 4_000, 100)]
+        if r:
+            ev.events.append(_span("codec.replay", t0 + 200, 1_500))
+        ev.kernel(t0 + 500, 5)
+        ev.kernel(t0 + 4_050, 5)
+    return ev
+
+
 def _train_trace():
     """Two steps: backward kernels 100 + 40 us, update 8 + 2, forward 30;
     three synchronising calls per step inside ``train.step``, one outside."""
@@ -407,6 +427,8 @@ KNOWN = {
     "backward_device_ms.adv": (_train_trace, 140e-3),
     "update_device_ms.adv": (_train_trace, 10e-3),
     "host_syncs_per_step.adv": (_train_trace, 3),
+    "graph_hit_pct.request": (_replay_trace, 75.0),
+    "graph_hit_pct.serve": (_replay_trace, 75.0),
 }
 
 
@@ -429,6 +451,13 @@ def test_reader_reads_nothing_without_the_program_spans(name):
     assert read(ev.run()) is None
     assert read(build().run(device=False)) is None
     assert read(types.SimpleNamespace(traces=[], traced_units=0)) is None
+
+
+@pytest.mark.parametrize("name", ["graph_hit_pct.request",
+                                  "graph_hit_pct.serve"])
+def test_graph_hits_read_nothing_without_replay_spans(name):
+    """A program without stage graphs: codec calls, no ``codec.replay``."""
+    assert bench_run.reader(name)(_request_trace().run()) is None
 
 
 def test_the_serve_batch_stages_add_up_to_the_calls():
