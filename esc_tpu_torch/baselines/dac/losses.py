@@ -14,8 +14,9 @@ from typing import Sequence
 import torch
 
 from ...metrics import sisdr
+from ...ops.constants import on_device
 from ...ops.mel import MEL_BINS, MEL_WINDOWS, mel_spectrogram, reflect_index
-from ...ops.stft import _dft_matrices, _on_device
+from ...ops.stft import _dft_matrices
 
 __all__ = ["l1_loss", "multi_scale_stft_loss", "mel_spectrogram_loss",
            "sisdr_loss"]
@@ -42,7 +43,7 @@ def _mag_stft(x: torch.Tensor, n_fft: int, hop: int) -> torch.Tensor:
     n = torch.full((1,), L, device=x.device)
     xp = x.float()[:, reflect_index(L, pad, n)[0]]
     frames = xp.unfold(-1, n_fft, hop)[:, :T]
-    spec = frames @ _on_device(_dft_matrices, (n_fft, n_fft), 0, x.device)
+    spec = frames @ on_device(_dft_matrices, (n_fft, n_fft), 0, x.device)
     spec = spec.reshape(B, T, 2, n_fft // 2 + 1)
     return torch.sqrt((spec * spec).sum(2) + 1e-24)
 

@@ -25,8 +25,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.constants import on_device
 from ..ops.resample import resample_julius
-from ..ops.stft import _dft_matrices, _on_device
+from ..ops.stft import _dft_matrices
 
 __all__ = ["Discriminator", "MPD", "MSD", "MRD", "WNConv", "BANDS",
            "WN_EPS", "init_discriminator"]
@@ -173,7 +174,7 @@ class MRD(nn.Module):
         if short > 0:
             xp = F.pad(xp, (0, short))
         frames = xp.unfold(-1, w, hop)[:, :T]               # (B, T, w)
-        spec = frames @ _on_device(_dft_matrices, (w, w), 0, x.device)
+        spec = frames @ on_device(_dft_matrices, (w, w), 0, x.device)
         nf = w // 2 + 1
         spec = spec.reshape(B, T, 2, nf).transpose(1, 2)    # (B, 2, T, F)
         return [spec[..., int(lo * nf):int(hi * nf)]

@@ -25,9 +25,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.constants import capturing, frozen, on_device
 from ..ops.kernels import window_attention, window_attention_plain
-from ..ops.stft import frozen
-from ..utils.graphs import capturing, hold
 from .scale import LN_EPS, LayerNorm, PatchMerge, PatchSplit
 
 __all__ = ["swin_attention_mask", "relative_position_index",
@@ -52,20 +51,6 @@ def swin_attention_mask(H: int, W: int, window: int, shift: int
     m = m.transpose(0, 2, 1, 3).reshape(-1, window * window)
     diff = m[:, None, :] - m[:, :, None]
     return frozen(np.where(diff != 0, -100.0, 0.0).astype(np.float32))
-
-
-@functools.lru_cache(maxsize=64)
-def _mask_cached(H: int, W: int, window: int, shift: int,
-                 device: torch.device) -> torch.Tensor:
-    return torch.tensor(swin_attention_mask(H, W, window, shift),
-                        device=device)
-
-
-def _mask_on(H: int, W: int, window: int, shift: int,
-             device: torch.device) -> torch.Tensor:
-    """The SW-MSA mask on ``device``, uploaded once; a capturing chain of
-    stage graphs keeps it (:func:`esc_tpu_torch.utils.graphs.hold`)."""
-    return hold(_mask_cached(H, W, window, shift, device))
 
 
 @functools.lru_cache(maxsize=16)
@@ -206,7 +191,8 @@ class SwinBlock(nn.Module):
         mask = None
         if ss > 0:
             x = torch.roll(x, shifts=(-ss, -ss), dims=(1, 2))
-            mask = _mask_on(H, W, ws, ss, x.device)
+            mask = on_device(swin_attention_mask, (H, W, ws, ss), -1,
+                             x.device)
         windows = window_partition(x, ws).reshape(-1, ws * ws, C)
         attn = self.attn(windows, mask).reshape(-1, ws, ws, C)
         x = window_reverse(attn, ws, Hp, Wp)

@@ -15,7 +15,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .stft import _dft_matrices, _on_device, frozen
+from .constants import frozen, on_device
+from .stft import _dft_matrices
 
 __all__ = ["mel_filterbank", "mel_spectrogram", "reflect_index",
            "MEL_WINDOWS", "MEL_BINS"]
@@ -69,11 +70,11 @@ def magnitude_mel(frames: torch.Tensor, n_fft: int, n_mels: int,
     windowed DFT as one product, ``sqrt(re² + im² + 1e-24)``, the bank."""
     nf = n_fft // 2 + 1
     B, T, _ = frames.shape
-    fwd = _on_device(_dft_matrices, (n_fft, n_fft), 0, frames.device)
+    fwd = on_device(_dft_matrices, (n_fft, n_fft), 0, frames.device)
     spec = (frames @ fwd).reshape(B, T, 2, nf)
     mag = torch.sqrt((spec * spec).sum(2) + 1e-24)           # (B, T, F)
-    fb = _on_device(mel_filterbank, (nf, n_mels, sample_rate), -1,
-                    frames.device)
+    fb = on_device(mel_filterbank, (nf, n_mels, sample_rate), -1,
+                   frames.device)
     return (mag @ fb).transpose(1, 2)
 
 

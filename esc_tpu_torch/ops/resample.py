@@ -23,7 +23,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .stft import frozen
+from .constants import frozen, on_device
 
 __all__ = ["resample", "resample_kernel", "resample_julius",
            "julius_kernel"]
@@ -64,13 +64,6 @@ def julius_kernel(old_sr: int, new_sr: int, zeros: int = 24,
     return frozen((np.stack(rows) * scale).astype(np.float32))
 
 
-@functools.lru_cache(maxsize=64)
-def _taps(make, args: tuple, device: torch.device) -> torch.Tensor:
-    """``make(*args)`` as a float32 tensor kept on ``device``, a copy that
-    shares no memory with the cached numpy array."""
-    return torch.tensor(make(*args), device=device)
-
-
 def _reduced(orig_sr: int, new_sr: int):
     g = math.gcd(int(orig_sr), int(new_sr))
     return orig_sr // g, new_sr // g
@@ -87,7 +80,7 @@ def resample(x: torch.Tensor, orig_sr: int, new_sr: int, zeros: int = 24,
     if squeeze:
         x = x[None]
     down, up = _reduced(orig_sr, new_sr)
-    h = _taps(resample_kernel, (up, down, zeros, rolloff), x.device)
+    h = on_device(resample_kernel, (up, down, zeros, rolloff), -1, x.device)
     half = (h.shape[0] - 1) // 2
     B, L = x.shape
     stuffed = x.new_zeros(B, 1, (L - 1) * up + 1, dtype=torch.float32)
@@ -109,7 +102,7 @@ def resample_julius(x: torch.Tensor, orig_sr: int, new_sr: int,
     if squeeze:
         x = x[None]
     old, new = _reduced(orig_sr, new_sr)
-    k = _taps(julius_kernel, (old, new, zeros, rolloff), x.device)
+    k = on_device(julius_kernel, (old, new, zeros, rolloff), -1, x.device)
     width = (k.shape[1] - old) // 2
     B, L = x.shape
     xp = F.pad(x.float()[:, None], (width, width + old), mode="replicate")

@@ -18,17 +18,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..utils.graphs import hold
+from .constants import frozen, on_device
 
 __all__ = ["stft", "istft", "spec_transform", "audio_reconstruct"]
-
-
-def frozen(*arrays: np.ndarray):
-    """Mark cached numpy constants read-only: every caller of a cached
-    function shares its arrays, so a write by one would reach all."""
-    for a in arrays:
-        a.setflags(write=False)
-    return arrays if len(arrays) > 1 else arrays[0]
 
 
 def _padded_window(n_fft: int, win_length: int) -> np.ndarray:
@@ -69,23 +61,6 @@ def _ola_envelope(n_fft: int, win_length: int, hop: int, T: int) -> np.ndarray:
     return frozen(np.where(env > 1e-11, env, 1.0).astype(np.float32))
 
 
-@functools.lru_cache(maxsize=64)
-def _on_device_cached(make, args: tuple, index: int, device: torch.device
-                      ) -> torch.Tensor:
-    a = make(*args)
-    return torch.tensor(a if index < 0 else a[index], device=device)
-
-
-def _on_device(make, args: tuple, index: int, device: torch.device
-               ) -> torch.Tensor:
-    """``make(*args)[index]`` (or ``make(*args)`` where ``index`` is -1), a
-    numpy constant, as a tensor kept on ``device``: it is uploaded once,
-    not at every call. On the CPU too the tensor is a copy, so that it
-    shares no memory with the cached numpy array. A capturing chain of
-    stage graphs keeps it (:func:`esc_tpu_torch.utils.graphs.hold`)."""
-    return hold(_on_device_cached(make, args, index, device))
-
-
 def stft(x: torch.Tensor, n_fft: int = 382, win_length: int = 320,
          hop_length: int = 80) -> torch.Tensor:
     """Waveform ``(B, L)`` -> ``(B, 2, F, T)`` (real, imag), ``T = L//hop+1``."""
@@ -95,8 +70,8 @@ def stft(x: torch.Tensor, n_fft: int = 382, win_length: int = 320,
     pad = n_fft // 2
     xp = F.pad(x.float()[:, None], (pad, pad), mode="reflect")[:, 0]
     frames = xp.unfold(-1, n_fft, hop_length)[:, :T]        # (B, T, n_fft)
-    spec = frames @ _on_device(_dft_matrices, (n_fft, win_length), 0,
-                               x.device)                    # (B, T, 2F)
+    spec = frames @ on_device(_dft_matrices, (n_fft, win_length), 0,
+                              x.device)                     # (B, T, 2F)
     return spec.reshape(B, T, 2, nf).permute(0, 2, 3, 1)
 
 
@@ -107,13 +82,13 @@ def istft(spec: torch.Tensor, n_fft: int = 382, win_length: int = 320,
     with least-squares overlap-add normalisation (torch.istft semantics)."""
     B, _, nf, T = spec.shape
     flat = spec.permute(0, 3, 1, 2).reshape(B, T, 2 * nf).float()
-    frames = flat @ _on_device(_dft_matrices, (n_fft, win_length), 1,
-                               spec.device)                 # (B, T, n_fft)
+    frames = flat @ on_device(_dft_matrices, (n_fft, win_length), 1,
+                              spec.device)                  # (B, T, n_fft)
     total = (T - 1) * hop_length + n_fft
     y = F.fold(frames.transpose(1, 2), output_size=(1, total),
                kernel_size=(1, n_fft), stride=(1, hop_length))[:, 0, 0]
-    env = _on_device(_ola_envelope, (n_fft, win_length, hop_length, T), -1,
-                     spec.device)
+    env = on_device(_ola_envelope, (n_fft, win_length, hop_length, T), -1,
+                    spec.device)
     pad = n_fft // 2
     out_len = (T - 1) * hop_length if length is None else length
     return y[:, pad:pad + out_len] / env[pad:pad + out_len]

@@ -55,9 +55,10 @@ covers its chains: calls from several threads take turns at the captures
 and replays, and their eager calls run side by side as before.
 
 Lifetimes. A graph reads device memory outside its pool: the parameters
-and buffers, and the constants that :func:`hold` hands to the capturing
-chain (``modules/transformer.py::_mask_on``, ``ops/stft.py::_on_device``),
-which the chain keeps alive whatever their caches evict. Every call
+and buffers, and the cached constants (masks, DFT matrices) that
+:func:`esc_tpu_torch.ops.constants.on_device` hands to the capturing
+chain (:func:`~esc_tpu_torch.ops.constants.keeping`), which the chain
+keeps alive whatever the cache evicts. Every call
 compares the address of each parameter and buffer of the module, in
 order, and the module's tree, with those the chains were captured on,
 and drops the chains where one differs: a tensor replaced, registered or
@@ -88,10 +89,11 @@ from typing import Any, Callable, Dict, Hashable, List, Optional, Tuple
 import torch
 import torch.nn as nn
 
+from ..ops.constants import capturing, keeping
 from ..ops.kernels import KERNELS
 from .profiling import annotate
 
-__all__ = ["stage", "hold", "capturing", "StageGraphs", "MAX_CHAINS", "SEEN"]
+__all__ = ["stage", "StageGraphs", "MAX_CHAINS", "SEEN"]
 
 MAX_CHAINS = 64             # chains a codec keeps (a serving loop: 48)
 SEEN = 4 * MAX_CHAINS       # keys remembered, and calls a chain sits unused
@@ -115,21 +117,6 @@ def stage(name: str, fn: Callable[..., Any], *args) -> Any:
     return chain.stage(name, fn, args)
 
 
-def hold(t: torch.Tensor) -> torch.Tensor:
-    """``t``, kept alive by the chain that is capturing, if any: a cached
-    device constant that the chain's graphs read."""
-    chain = getattr(_ACTIVE, "chain", None)
-    if chain is not None and chain.capturing:
-        chain.held.append(t)
-    return t
-
-
-def capturing() -> bool:
-    """Whether this thread is capturing a chain."""
-    chain = getattr(_ACTIVE, "chain", None)
-    return chain is not None and chain.capturing
-
-
 class _Chain:
     """The graphs of one call key: a graph, a stage name and the recorded
     outputs per stage, the static input, the constants the graphs read,
@@ -146,11 +133,10 @@ class _Chain:
         self.replays = 0
         self.last = 0               # the codec's call that used it last
         self.result = None
-        self.capturing = False
         self.step = 0
 
     def stage(self, name: str, fn, args) -> Any:
-        if not self.capturing:
+        if not capturing():
             i = self.step
             if i >= len(self.names) or self.names[i] != name:
                 raise RuntimeError(
@@ -181,14 +167,12 @@ class _Chain:
             torch.cuda.synchronize(self.input.device)
             before = {name: w.launches for name, (w, _) in KERNELS.items()}
             side.wait_stream(torch.cuda.current_stream(self.input.device))
-            self.capturing = True
             _ACTIVE.chain = self
             try:
-                with torch.cuda.stream(side):
+                with torch.cuda.stream(side), keeping(self.held):
                     out = fn(self.input)
             finally:
                 _ACTIVE.chain = None
-                self.capturing = False
             self.kernels = {name: KERNELS[name][0].launches - n
                             for name, n in before.items()
                             if KERNELS[name][0].launches != n}

@@ -128,6 +128,41 @@ def test_port_sources_import_no_jax(path):
         assert root not in _FORBIDDEN, f"{path.name}:{node.lineno} {root}"
 
 
+# what ops/ and modules/ build on, never the layers built on them
+_ABOVE = ("esc_tpu_torch.utils.graphs", "esc_tpu_torch.models",
+          "esc_tpu_torch.serving", "esc_tpu_torch.train",
+          "esc_tpu_torch.parallel", "esc_tpu_torch.cli",
+          "esc_tpu_torch.baselines")
+
+
+def _imported_modules(path):
+    """Every module ``path`` imports, relative imports made absolute; for
+    ``from m import n`` both ``m`` and ``m.n`` (``n`` may be a module)."""
+    package = path.relative_to(ROOT).parts[:-1]
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield node, a.name
+        elif isinstance(node, ast.ImportFrom):
+            base = package[:len(package) + 1 - node.level] \
+                if node.level else ()
+            module = ".".join(base + ((node.module,) if node.module else ()))
+            yield node, module
+            for a in node.names:
+                yield node, f"{module}.{a.name}"
+
+
+@pytest.mark.parametrize("path", sorted(
+    p for sub in ("ops", "modules")
+    for p in (ROOT / "esc_tpu_torch" / sub).rglob("*.py")),
+    ids=lambda p: str(p.relative_to(ROOT)))
+def test_ops_and_modules_import_no_layer_above_them(path):
+    for node, module in _imported_modules(path):
+        assert not any(module == top or module.startswith(top + ".")
+                       for top in _ABOVE), \
+            f"{path.name}:{node.lineno} imports {module}"
+
+
 def test_importing_the_cli_loads_no_jax():
     code = ("import sys, esc_tpu_torch.cli.compress, chip_smoke, "
             "esc_tpu_torch.serving, esc_tpu_torch.checkpoint, "

@@ -9,8 +9,8 @@ so it runs where JAX is absent):
 - replayed codes and waveforms equal the eager ones bit for bit, at every
   (length, streams) pair of the serve-single traffic, at serve-batch's
   16 x 47,920 at 6 streams, in bf16 and for the ablation codecs;
-- a returned tensor outlives the next call; a replay after the caches of
-  masks and DFT constants were flooded, after ``load_state_dict``, after
+- a returned tensor outlives the next call; a replay after the cache of
+  masks and DFT constants was flooded, after ``load_state_dict``, after
   a move of the module there and back and after a submodule's dtype or a
   parameter's memory changed equals the eager call;
 - a capture that fails serves the call eagerly and leaves its key eager;
@@ -42,6 +42,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from esc_tpu_torch.models import ESC, codecs, make_model
 from esc_tpu_torch.modules import transformer
+from esc_tpu_torch.ops import constants
 from esc_tpu_torch.ops import stft as port_stft
 from esc_tpu_torch.ops.kernels import (codebook_argmin, layer_norm,
                                        window_attention)
@@ -191,16 +192,16 @@ def test_replay_reads_its_constants_after_the_caches_were_flooded(card):
 
 
 def _flood(card):
-    """Eager calls of 80 other shapes of both constant caches: they evict
-    what they held."""
-    masks = transformer._mask_cached.cache_info().misses
-    consts = port_stft._on_device_cached.cache_info().misses
-    for k in range(80):
-        transformer._mask_on(8 + k, 40, 4, 2, card)
-        port_stft._on_device(port_stft._ola_envelope, (382, 320, 80, 50 + k),
-                             -1, card)
-    assert transformer._mask_cached.cache_info().misses >= masks + 80
-    assert port_stft._on_device_cached.cache_info().misses >= consts + 80
+    """Eager calls of as many other masks, and as many other overlap-add
+    envelopes, as the constant cache holds: they evict what it held."""
+    info = constants._uploaded.cache_info()
+    for k in range(info.maxsize):
+        constants.on_device(transformer.swin_attention_mask,
+                            (8 + k, 40, 4, 2), -1, card)
+        constants.on_device(port_stft._ola_envelope,
+                            (382, 320, 80, 50 + k), -1, card)
+    assert constants._uploaded.cache_info().misses >= \
+        info.misses + 2 * info.maxsize
 
 
 @cuda
@@ -724,7 +725,7 @@ def test_a_failed_capture_marks_the_key_eager(replaying, monkeypatch):
     real = codecs.spec_transform
 
     def uncapturable(x, *args):
-        if graphs.capturing():
+        if constants.capturing():
             raise RuntimeError("operation not permitted when stream is "
                                "capturing")
         return real(x, *args)
@@ -749,15 +750,15 @@ def test_a_chain_holds_the_cached_constants_it_read(replaying):
     enc = sg.chains[("encode", (1, 7920), 6, torch.float32)]
     dec = sg.chains[("decode", tuple(codes.shape), codes.dtype, fs,
                      torch.float32)]
-    dft = port_stft._on_device(port_stft._dft_matrices, (382, 320), 0,
+    dft = constants.on_device(port_stft._dft_matrices, (382, 320), 0,
+                              torch.device("cpu"))
+    idft = constants.on_device(port_stft._dft_matrices, (382, 320), 1,
                                torch.device("cpu"))
-    idft = port_stft._on_device(port_stft._dft_matrices, (382, 320), 1,
-                                torch.device("cpu"))
     assert any(t is dft for t in enc.held)
     assert any(t is idft for t in dec.held)
     masks = {id(t) for t in enc.held if t.dim() == 3}
     assert masks, "the shifted windows' masks"
-    assert not graphs.capturing()
+    assert not constants.capturing()
 
 
 def test_bf16_casts_are_made_inside_a_capture(stand_ins):
@@ -766,13 +767,8 @@ def test_bf16_casts_are_made_inside_a_capture(stand_ins):
     with torch.no_grad():
         transformer._linear(layer, x, torch.bfloat16)
         cached = layer._cast
-        chain = graphs._Chain(torch.zeros(1), None)
-        chain.capturing = True
-        graphs._ACTIVE.chain = chain
-        try:
+        with constants.keeping([]):
             out = transformer._linear(layer, x, torch.bfloat16)
-        finally:
-            graphs._ACTIVE.chain = None
     assert layer._cast is cached and out.dtype == torch.bfloat16
 
 

@@ -25,6 +25,7 @@ from esc_tpu_torch.modules import transformer as port_transformer
 from esc_tpu_torch.ops import mel as port_mel
 from esc_tpu_torch.ops import resample as port_resample
 from esc_tpu_torch.ops import stft as port_stft
+from esc_tpu_torch.ops.constants import on_device
 from esc_tpu_torch.ops.mel import MEL_BINS, MEL_WINDOWS, mel_spectrogram
 from tests.test_torch_port_conv import one_torch_thread  # noqa: F401
 
@@ -106,13 +107,13 @@ def test_cached_constants_are_read_only_and_not_shared():
         with pytest.raises(ValueError):
             a[(0,) * a.ndim] = 1
     cpu = torch.device("cpu")
-    fwd = port_stft._on_device(port_stft._dft_matrices, (32, 32), 0, cpu)
-    fb = port_stft._on_device(port_mel.mel_filterbank, (17, 5, 16000), -1,
-                              cpu)
+    fwd = on_device(port_stft._dft_matrices, (32, 32), 0, cpu)
+    fb = on_device(port_mel.mel_filterbank, (17, 5, 16000), -1, cpu)
     for t, a in ((fwd, arrays[0]), (fb, arrays[4])):
         assert not np.shares_memory(t.numpy(), a)
         np.testing.assert_array_equal(t.numpy(), a)
-    mask = port_transformer._mask_on(8, 8, 4, 2, cpu)
+    mask = on_device(port_transformer.swin_attention_mask, (8, 8, 4, 2), -1,
+                     cpu)
     assert not np.shares_memory(mask.numpy(), arrays[5])
     attn = port_transformer.WindowAttention(8, 4, 2)
     assert not np.shares_memory(attn.relative_position_index.numpy(),
