@@ -15,6 +15,10 @@ Phases, each ending with one line that carries its seconds:
             the 25 s file of phase 3c whole and in its chunks; the DAC's
             1024 x 8 codebooks of phase 11) and at widths
             beyond them (heads split into groups, codebooks in K-tiles);
+            the snake kernel bit for bit against its plain version at every
+            shape of the DAC cell's roundtrip (16 clips of 3 s) and at edge
+            shapes, on aligned and misaligned inputs, with alphas of one,
+            positive, near zero and negative;
             call time (CUDA events around the Python calls,
             host work included) of the kernel, its plain version and one
             library call
@@ -102,12 +106,13 @@ Phases, each ending with one line that carries its seconds:
 11. dac      the DAC of configs/dac/16khz_dns_9k.yml as published (74.34M
             parameters, random weights from seed 0): the eval forward of 4
             clips of 3 s and compress of a 10 s wav in 1 s windows, with
-            the argmin's launches predicted, against the plain argmin;
+            the argmin's and the snake's launches predicted, against the
+            plain versions;
             python -m esc_tpu_torch.baselines.dac encode and decode as
             subprocesses; DACTrainer with the config's discriminator for 4
             steps at batch 2 and a validation (finite losses, checkpoints
-            that load, no kernel in a step, the argmin in the validation);
-            one trace() of a DAC roundtrip
+            that load, no kernel in a step, the argmin and the snake in the
+            validation); one trace() of a DAC roundtrip
 12. encodec  EnCodec 24 kHz as published (encodec_24khz: 32 filters,
             ratios 8 5 4 2, dimension 128, a 2-layer SLSTM, 32 x 1024
             codebooks; 19.05M values, random weights from seed 0): the
@@ -124,14 +129,15 @@ Phases, each ending with one line that carries its seconds:
             then each kernel's, its plain version's and the library call's
             device time (torch.profiler) at the shapes of phase 2, at those
             of the ablations' roundtrips and at those of the DAC's 10 s
-            compress
+            compress; the snake's per DAC roundtrip of 16 clips of 3 s (the
+            DAC cell's batch) against ATen's five passes
 
 Phases 5-12 run before phase 4. Each path of phases 3-7 and 9-12 is driven
 eagerly (no stage graph captured or replayed, :func:`eager_codecs`), with
 the launch counts set to 0 just before it and read just after; every
 kernel of the path must have run in it (in the training steps of phases
 6, 7, 9 and 11 and in EnCodec, none may; in a conv codec's roundtrip and
-in the DAC, the attention may not).
+in the DAC, the attention may not). The snake runs in the DAC alone.
 
 The second-to-last line is the kernels' JSON summary (the numbers of
 PERF.md's kernel table), the last {"ok": true, "device": {...}}. Any
@@ -196,6 +202,13 @@ LN_TOL = (1e-5, 1e-5)
 # rows that are no multiple of a tile or of the rows a warp reduces at
 # once, and a width beyond ESC's
 LN_RAGGED = [(1, 45), (31, 90), (4801, 96), (257, 1000)]
+# the snake kernel, bit for bit against its plain version: the DAC cell's
+# batch (portbench/traffic/dac-serve-batch.json), and (B, C, T) of rows
+# shorter than a float4, one channel, odd lengths
+DAC_CELL_BATCH = 16
+SNAKE_EDGE = [(3, 7, 1), (2, 5, 3), (4, 33, 5999), (5, 1, 4097), (1, 1, 1)]
+# the kernels of ESC's codecs; the snake is the DAC's
+ESC_KERNELS = ("codebook_argmin", "window_attention", "layer_norm")
 # codebooks over a block's shared memory stream through it in K-tiles
 ARGMIN_WIDE = [(600, 1024, 64), (600, 1024, 128), (600, 1024, 256),
                (4801, 4096, 8), (601, 1023, 65)]
@@ -443,10 +456,10 @@ def norm_launches(attn: list, depth: int, runs: int) -> int:
 
 def predicted(argmin: list, attn: list, runs: int,
               depth: int = ESC_BASE["swin_depth"]) -> dict:
-    """Each kernel's launches on a path of ``runs`` passes with these
-    argmin and attention calls."""
+    """Each kernel's launches on a path of ``runs`` passes of an ESC codec
+    with these argmin and attention calls (no snake)."""
     return {"codebook_argmin": len(argmin), "window_attention": len(attn),
-            "layer_norm": norm_launches(attn, depth, runs)}
+            "layer_norm": norm_launches(attn, depth, runs), "snake": 0}
 
 
 def chunk_grid(cfg: dict, length: int, chunk_seconds: float,
@@ -622,6 +635,47 @@ def check_layer_norm(kern, rng, dev, shapes):
     return worst
 
 
+def snake_alphas(rng, C, dev) -> dict:
+    """Alphas ``(1, C, 1)``: one (the DAC's init), positive, near zero and
+    negative."""
+    a = {"one": np.ones(C), "positive": rng.uniform(0.05, 4.0, C),
+         "near zero": rng.choice([-1, 1], C) * 10.0 ** rng.uniform(-7, -3, C),
+         "negative": -rng.uniform(0.05, 4.0, C)}
+    return {k: torch.tensor(v.reshape(1, C, 1), dtype=torch.float32,
+                            device=dev) for k, v in a.items()}
+
+
+def check_snake(kern, rng, dev, shapes):
+    """The snake kernel against its plain version at (B, C, T) shapes, bit
+    for bit, with :func:`snake_alphas`, on a contiguous input and on one 4
+    bytes past a 16-byte boundary; every 997th value 1e5 times larger
+    (sinf's long range reduction). Returns the arrays compared."""
+    wrapper, plain = kern["snake"]
+    compared = 0
+    for B, C, T in shapes:
+        x = torch.randn(B, C, T, device=dev) * 3
+        x.view(-1)[::997] *= 1e5
+        flat = torch.empty(x.numel() + 1, device=dev)
+        shifted = flat[1:].view(B, C, T)
+        shifted.copy_(x)
+        for kind, alpha in snake_alphas(rng, C, dev).items():
+            want = plain(x, alpha)
+            for got in (wrapper(x, alpha), wrapper(shifted, alpha)):
+                differ = got.view(torch.int32) != want.view(torch.int32)
+                if bool(differ.any()):
+                    ulps = (got.view(torch.int32).long()
+                            - want.view(torch.int32).long()).abs().max()
+                    raise RuntimeError(
+                        f"snake B={B} C={C} T={T} alpha {kind}: "
+                        f"{int(differ.sum())} elements differ from the plain"
+                        f" version, by up to {int(ulps)} ulp")
+                compared += 1
+    print(f"  snake: {len(shapes)} shapes ({shapes[0]} .. {shapes[-1]}), "
+          f"{compared} arrays, aligned and shifted inputs: bit for bit the "
+          "plain version's", flush=True)
+    return compared
+
+
 def time_argmin(kern, rng, dev, calls, clock):
     """Times by ``clock`` of the kernel, its plain version and
     ``torch.cdist`` + ``argmin`` at each shape, summed over the calls of one
@@ -709,6 +763,30 @@ def time_layer_norm(kern, rng, dev, calls, clock):
     return tot
 
 
+def time_snake(kern, rng, dev, calls, clock):
+    """Times by ``clock`` of the kernel and of its plain version (ATen's
+    five passes), summed over ``calls`` (B, C, T), alphas of one as the DAC
+    cell's."""
+    wrapper, plain = kern["snake"]
+    keys = _KEYS[clock][:2]
+    tot = dict.fromkeys(keys + ("bytes", "flops"), 0.0)
+    for (B, C, T), n in _count(calls).items():
+        x = torch.randn(B, C, T, device=dev)
+        alpha = torch.ones(1, C, 1, device=dev)
+        times = (clocked(clock, lambda: wrapper(x, alpha), "snake_kernel"),
+                 clocked(clock, lambda: plain(x, alpha)))
+        nbytes = 4 * (2 * B * C * T + C)
+        print(f"  snake B={B} C={C} T={T} x{n}: {clock} ms: kernel "
+              f"{times[0]:.4f} (bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f}),"
+              f" plain {times[1]:.4f}", flush=True)
+        for key, t in zip(keys, times):
+            tot[key] += n * t
+        tot["bytes"] += n * nbytes
+        tot["flops"] += n * 5 * B * C * T
+        del x
+    return tot
+
+
 def time_wide(kern, rng, dev) -> dict:
     """Device ms of each kernel, its plain version and the library call at
     one width beyond ESC-Base's (heads in groups; a K-tiled codebook)."""
@@ -770,9 +848,10 @@ def eager_codecs():
 
 def counted(kern, what: str, fn, ran: bool = True, expect=None):
     """Run ``fn`` eagerly with every launch count set to 0 just before and
-    read just after; raise unless every kernel ran (with ``ran=False``:
-    unless none did; with ``expect``, a set of names: unless those ran and
-    no other did). Returns (result, counts)."""
+    read just after; raise unless every kernel of ESC's codecs ran and no
+    other did (with ``ran=False``: unless none did; with ``expect``, a set
+    of names: unless those ran and no other did). Returns (result,
+    counts)."""
     for wrapper, _ in kern.values():
         wrapper.launches = 0
     with eager_codecs():
@@ -780,7 +859,7 @@ def counted(kern, what: str, fn, ran: bool = True, expect=None):
     torch.cuda.synchronize()
     counts = {name: wrapper.launches for name, (wrapper, _) in kern.items()}
     print(f"  launches on {what}: {counts}", flush=True)
-    must = set(kern) if ran else set()
+    must = set(ESC_KERNELS) if ran else set()
     if expect is not None:
         must = set(expect)
     if any(counts[k] == 0 for k in must):
@@ -952,7 +1031,7 @@ def drive_main_path(model, x, compress_file, tmp):
 # the kernels' names, as the profiler reports them, by wrapper
 KERNEL_NAMES = {"codebook_argmin": "codebook_argmin",
                 "window_attention": "window_attention",
-                "layer_norm": "layer_norm_kernel"}
+                "layer_norm": "layer_norm_kernel", "snake": "snake_kernel"}
 
 
 def check_replay(model, x, per_rt: dict) -> dict:
@@ -2073,6 +2152,35 @@ def dac_forward_calls(cfg: dict, batch: int, length: int) -> list:
         * cfg["n_codebooks"]
 
 
+def dac_snakes(cfg: dict) -> tuple[int, int]:
+    """Snakes of one DAC encoder pass and of one decoder pass: seven in
+    each block (two in each of its three residual units, one before its
+    strided or transposed conv), one before the last conv."""
+    return 7 * len(cfg["encoder_rates"]) + 1, \
+        7 * len(cfg["decoder_rates"]) + 1
+
+
+def dac_snake_calls(cfg: dict, batch: int, length: int) -> list:
+    """(B, C, T) of every snake of one padded ``encode_codes`` +
+    ``decode_codes`` of ``batch`` clips of ``length`` samples, a multiple
+    of the hop, in call order (:func:`dac_snakes`)."""
+    calls = []
+    C, T = cfg["encoder_dim"], length
+    for s in cfg["encoder_rates"]:
+        calls += [(batch, C, T)] * 7
+        T = (T + 2 * -(-s // 2) - 2 * s) // s + 1
+        C *= 2
+    calls.append((batch, C, T))
+    C = cfg["decoder_dim"]
+    for s in cfg["decoder_rates"]:
+        calls.append((batch, C, T))
+        T = (T - 1) * s - 2 * -(-s // 2) + 2 * s
+        C //= 2
+        calls += [(batch, C, T)] * 6
+    calls.append((batch, C, T))
+    return calls
+
+
 def dac_padded_length(cfg: dict, length: int) -> int:
     """The padded forward's output length: the input padded to whole hops,
     each transposed conv's ``(T - 1) s - 2 ceil(s / 2) + 2 s`` (one sample
@@ -2117,11 +2225,13 @@ def _iter_lines(text: str) -> list:
 def check_dac(kern, dev, rng, tmp: Path):
     """Phase 11: the DAC of ``configs/dac/16khz_dns_9k.yml`` as published
     (random weights from seed 0): the eval forward of 4 clips of 3 s and
-    ``compress`` of a 10 s wav, with the argmin's launches predicted,
-    against the same model on the plain argmin; the encode / decode CLI as
-    subprocesses; ``DACTrainer`` with the config's discriminator for 4
-    steps at batch 2 (no kernel launch in a step, the argmin in the
-    validation); one ``trace()`` of a roundtrip. Returns (the argmin calls
+    ``compress`` of a 10 s wav, with the argmin's and the snake's launches
+    predicted, against the same model on the plain versions; the encode /
+    decode CLI as subprocesses; ``DACTrainer`` with the config's
+    discriminator for 4 steps at batch 2 (no kernel launch in a step, the
+    argmin and the snake in the validation); one ``trace()`` of a
+    roundtrip. The snake launches once a snake: :func:`dac_snakes` a
+    forward, the encoder's a window of compress. Returns (the argmin calls
     of the 10 s compress, launches)."""
     import io
 
@@ -2151,16 +2261,21 @@ def check_dac(kern, dev, rng, tmp: Path):
 
     drive()                                    # warm-up, not counted
     (out, f), launches = counted(kern, "the DAC's forward and compress",
-                                 drive, expect={"codebook_argmin"})
+                                 drive, expect={"codebook_argmin", "snake"})
     fwd_calls = dac_forward_calls(dcfg, DAC_CLIPS, DAC_CLIP)
     file_calls = dac_compress_calls(dcfg, L)
     windows = f.codes.shape[-1] // f.chunk_length
+    enc_snakes, dec_snakes = dac_snakes(dcfg)
     if launches["codebook_argmin"] != len(fwd_calls) + len(file_calls) \
+            or launches["snake"] != enc_snakes + dec_snakes \
+            + windows * enc_snakes \
             or windows * dcfg["n_codebooks"] != len(file_calls) \
             or f.padding or f.codes.shape[:2] != (1, dcfg["n_codebooks"]):
         raise RuntimeError(f"DAC launches {launches}, predicted "
-                           f"{len(fwd_calls)} + {len(file_calls)}; "
-                           f"{windows} windows, codes {f.codes.shape}")
+                           f"{len(fwd_calls)} + {len(file_calls)} argmin, "
+                           f"{enc_snakes} + {dec_snakes} + {windows} x "
+                           f"{enc_snakes} snake; {windows} windows, codes "
+                           f"{f.codes.shape}")
     codes = out["codes"]
     if tuple(codes.shape) != (DAC_CLIPS, dcfg["n_codebooks"],
                               DAC_CLIP // model.hop_length) \
@@ -2182,15 +2297,17 @@ def check_dac(kern, dev, rng, tmp: Path):
                                          False)).abs().max())}
     if max(mismatch.values()) > CODE_MISMATCH_MAX \
             or max(wave_err.values()) > WAVE_ATOL:
-        raise RuntimeError(f"DAC: codes against the plain argmin "
+        raise RuntimeError(f"DAC: codes against the plain versions "
                            f"{mismatch}, the same codes decoded {wave_err}")
     print(f"  DAC ({n_params / 1e6:.2f}M parameters): forward of "
           f"{DAC_CLIPS} x {DAC_CLIP / sr:g} s and compress of "
           f"{DAC_FILE_SECONDS} s ({windows} windows of {DAC_WIN:g} s): "
           f"argmin launches {launches['codebook_argmin']} as predicted "
-          f"({len(fwd_calls)} + {dcfg['n_codebooks']} x {windows}); codes "
-          f"against the plain argmin {mismatch} (<= 0.2%); the same codes "
-          f"decoded within {wave_err} (<= 5e-4)", flush=True)
+          f"({len(fwd_calls)} + {dcfg['n_codebooks']} x {windows}), snake "
+          f"{launches['snake']} ({enc_snakes} + {dec_snakes} + {windows} x "
+          f"{enc_snakes}); codes against the plain versions {mismatch} "
+          f"(<= 0.2%); the same codes decoded within {wave_err} (<= 5e-4)",
+          flush=True)
 
     model_dir = tmp / "dac_model"
     model_dir.mkdir()
@@ -2231,7 +2348,8 @@ def check_dac(kern, dev, rng, tmp: Path):
     with contextlib.redirect_stdout(log):
         _, train_launches = counted(
             kern, f"DACTrainer.train, {DAC_STEPS} steps and a validation",
-            lambda: trainer.train(DAC_STEPS), expect={"codebook_argmin"})
+            lambda: trainer.train(DAC_STEPS),
+            expect={"codebook_argmin", "snake"})
     said = log.getvalue()
     print(said, end="", flush=True)
     logged = _iter_lines(said)
@@ -2239,7 +2357,9 @@ def check_dac(kern, dev, rng, tmp: Path):
                                   DAC_TRAIN_SAMPLES - 80)
     if len(logged) != DAC_STEPS or not all(
             np.isfinite(v) for line in logged for v in line.values()) \
-            or train_launches["codebook_argmin"] != len(val_calls):
+            or train_launches["codebook_argmin"] != len(val_calls) \
+            or train_launches["snake"] != (enc_snakes + dec_snakes) * len(
+                val_calls) // dcfg["n_codebooks"]:
         raise RuntimeError(f"DACTrainer logged {logged}, launched "
                            f"{train_launches} (validation {len(val_calls)})")
     for tag in ("latest", "best"):
@@ -2256,15 +2376,17 @@ def check_dac(kern, dev, rng, tmp: Path):
                 model.decode_codes(model.encode_codes(x[:1]))
         traces = list(Path(logdir).glob("*.json"))
         text = traces[0].read_text() if len(traces) == 1 else ""
-    if "dac_roundtrip" not in text or "codebook_argmin" not in text:
-        raise RuntimeError(f"trace(): {len(traces)} files, the annotation "
-                           "or the argmin kernel missing")
+    if "dac_roundtrip" not in text or "codebook_argmin" not in text \
+            or "snake_kernel" not in text:
+        raise RuntimeError(f"trace(): {len(traces)} files, the annotation, "
+                           "the argmin or the snake kernel missing")
     print(f"  DACTrainer ({DAC_STEPS} adversarial steps at batch "
           f"{DAC_TRAIN_BATCH} x {(DAC_TRAIN_SAMPLES - 80) / sr:.3f} s, a "
-          f"validation): losses finite, the argmin {len(val_calls)} times "
-          f"in the validation and never in a step; latest and best.ckpt "
-          f"load; trace() wrote {traces[0].name} with the annotation and "
-          "the argmin kernel", flush=True)
+          f"validation): losses finite, the argmin {len(val_calls)} and the "
+          f"snake {train_launches['snake']} times in the validation and "
+          f"never in a step; latest and best.ckpt load; trace() wrote "
+          f"{traces[0].name} with the annotation, the argmin and the snake "
+          "kernel", flush=True)
     return file_calls, launches
 
 
@@ -2349,7 +2471,8 @@ def _flat_tree(tree: dict, prefix: str = "") -> dict:
 
 def time_kernels(kern, rng, dev, clock):
     """Each kernel by ``clock`` at the calls of one roundtrip at ns 6 (the
-    LayerNorm kernel where the package has one)."""
+    LayerNorm kernel where the package has one); the snake, where the
+    package has one, at those of one roundtrip of the DAC cell's batch."""
     argmin_calls, attn_calls = main_path_calls(ESC_BASE, BATCH, CLIP, 6)
     out = {"codebook_argmin": time_argmin(kern, rng, dev, argmin_calls,
                                           clock),
@@ -2358,6 +2481,10 @@ def time_kernels(kern, rng, dev, clock):
     if "layer_norm" in kern:
         out["layer_norm"] = time_layer_norm(
             kern, rng, dev, layer_norm_calls(ESC_BASE, BATCH, CLIP, 6), clock)
+    if "snake" in kern:
+        from esc_tpu_torch.utils.config import read_yaml
+        out["snake"] = time_snake(kern, rng, dev, dac_snake_calls(
+            read_yaml(str(DAC_YAML))["DAC"], DAC_CELL_BATCH, DAC_CLIP), clock)
     return out
 
 
@@ -2504,6 +2631,8 @@ def main() -> int:
     norm_calls = layer_norm_calls(ESC_BASE, BATCH, CLIP, 6)
     ln_err = check_layer_norm(KERNELS, rng, dev,
                               sorted(set(norm_calls)) + LN_RAGGED)
+    snake_calls = dac_snake_calls(dac_cfg, DAC_CELL_BATCH, DAC_CLIP)
+    check_snake(KERNELS, rng, dev, sorted(set(snake_calls)) + SNAKE_EDGE)
     # call times here, device times in phase 4: a profiler session slows
     # the host's later launches, which would show in the call times
     timing = time_kernels(KERNELS, rng, dev, "call")
@@ -2524,14 +2653,14 @@ def main() -> int:
         launches = {name: wrapper.launches
                     for name, (wrapper, _) in KERNELS.items()}
         print(f"  launches on the main path: {launches}", flush=True)
-        if min(launches.values()) == 0:
-            raise RuntimeError(f"a kernel never ran on the main path: "
-                               f"{launches}")
+        if min(launches[k] for k in ESC_KERNELS) == 0 or launches["snake"]:
+            raise RuntimeError(f"a kernel of ESC never ran on the main path,"
+                               f" or the snake did: {launches}")
         check_main_path(model, plain_model, x, out, cli, tmp)
 
     per_rt = {"codebook_argmin": len(argmin_calls),
               "window_attention": len(attn_calls),
-              "layer_norm": len(norm_calls)}
+              "layer_norm": len(norm_calls), "snake": 0}
     if norm_launches(attn_calls, ESC_BASE["swin_depth"], 1) != len(
             norm_calls):
         raise RuntimeError("the LayerNorm calls and the attention calls of "
@@ -2613,7 +2742,10 @@ def main() -> int:
         library = (f", library {tm['library_ms']:.4f} / "
                    f"{tm['library_call_ms']:.4f}" if "library_ms" in tm
                    else "")
-        print(f"  {name} per roundtrip at ns=6, device / call ms: kernel "
+        per = (f"per DAC roundtrip of {DAC_CELL_BATCH} x 3 s "
+               f"({len(snake_calls)} calls)" if name == "snake"
+               else "per roundtrip at ns=6")
+        print(f"  {name} {per}, device / call ms: kernel "
               f"{tm['device_ms']:.4f} / {tm['call_ms']:.4f}, plain "
               f"{tm['plain_ms']:.4f} / {tm['plain_call_ms']:.4f}{library}, "
               f"bound {bound_ms(tm['bytes'], tm['flops'])[0]:.4f}",
@@ -2627,7 +2759,8 @@ def main() -> int:
             ("window_attention", "esc_tpu_torch/csrc/window_attention.cu",
              "esc_tpu/ops/pallas/attention_kernels.py:131", attn_err),
             ("layer_norm", "esc_tpu_torch/csrc/layer_norm.cu", None,
-             ln_err)):
+             ln_err),
+            ("snake", "esc_tpu_torch/csrc/snake.cu", None, 0.0)):
         tm = timing[name]
         b_ms, b_by = bound_ms(tm["bytes"], tm["flops"])
         summary.append({
@@ -2651,6 +2784,9 @@ def main() -> int:
                              rvq_launches.items()},
             "chunked_dp_launches": dp_launches[name],
             "replay_launches": replay[name]})
+    summary[3]["per"] = (f"DAC roundtrip of {DAC_CELL_BATCH} x "
+                         f"{DAC_CLIP // dac_cfg['sample_rate']} s, "
+                         f"{len(snake_calls)} calls (bit for bit)")
     summary[0]["dac"] = {
         "shape": f"{len(dac_file_calls)} x {dac_file_calls[0]} per "
                  f"{DAC_FILE_SECONDS} s compress",

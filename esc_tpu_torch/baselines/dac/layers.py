@@ -11,6 +11,10 @@ parameters, ``weight_v`` (direction) and ``weight_g`` (magnitude, one per
 slice of dim 0: the output channels of a convolution, the input channels of
 a transposed one), and compute their kernel with torch's own weight norm,
 so a released DAC state dict loads as it is.
+
+Outside training and autograd, :class:`Snake1d` runs the port's snake
+kernel (:mod:`esc_tpu_torch.ops.kernels.snake`); ``snake`` is the plain
+expression the kernel is held to.
 """
 
 from __future__ import annotations
@@ -19,20 +23,24 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ...ops.kernels import snake as snake_kernel
+from ...ops.kernels import snake_plain as snake
 from ...utils.profiling import annotate
 
 __all__ = ["snake", "Snake1d", "WNConv1d", "WNConvTranspose1d",
            "conv_out_len", "convT_out_len", "ceil_div"]
 
 
-def snake(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
-    """``x + sin²(alpha x) / alpha`` (layers.py:17-24), per channel."""
-    return x + torch.sin(alpha * x) ** 2 / (alpha + 1e-9)
-
-
 class Snake1d(nn.Module):
     """Learnable per-channel snake activation, alpha ``(1, C, 1)`` from 1;
-    each call in the span ``act.snake``."""
+    each call in the span ``act.snake``.
+
+    ``plain_ops`` (set by ``DAC``), training mode and a call autograd
+    records run the plain expression (:func:`snake`, layers.py:17-24), on
+    any device; otherwise the snake kernel, which takes a contiguous copy of
+    a strided input."""
+
+    plain_ops = False
 
     def __init__(self, channels: int):
         super().__init__()
@@ -40,7 +48,11 @@ class Snake1d(nn.Module):
 
     def forward(self, x: torch.Tensor, padded: bool = True) -> torch.Tensor:
         with annotate("act.snake"):
-            return snake(x, self.alpha)
+            if self.plain_ops or self.training or (
+                    torch.is_grad_enabled()
+                    and (x.requires_grad or self.alpha.requires_grad)):
+                return snake(x, self.alpha)
+            return snake_kernel(x.contiguous(), self.alpha)
 
 
 class _WeightNorm(nn.Module):

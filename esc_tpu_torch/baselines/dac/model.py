@@ -231,7 +231,7 @@ class Decoder(nn.Module):
 
 class DACModule(nn.Module):
     """The whole codec (dac.py:147-322); in training mode (``train()``) the
-    quantizer's search runs the argmin's plain version."""
+    quantizer's search and the snakes run their plain versions."""
 
     def __init__(self, encoder_dim: int = 64,
                  encoder_rates: Sequence[int] = (2, 4, 8, 8),
@@ -354,7 +354,8 @@ def init_dac(module: nn.Module, generator: torch.Generator) -> nn.Module:
 class DAC:
     """The codec on a device: weights from ``seed`` (or loaded), the eval
     forward, and the windowed file codec. ``plain_ops`` runs the argmin's
-    plain version on any device, as the yardstick the kernel is held to."""
+    and the snake's plain versions on any device, as the yardstick the
+    kernels are held to."""
 
     def __init__(self, seed: int = 0,
                  device: Optional[Union[str, torch.device]] = None,
@@ -364,7 +365,7 @@ class DAC:
         self.module = DACModule(**config)
         init_dac(self.module, torch.Generator().manual_seed(seed))
         for m in self.module.modules():
-            if isinstance(m, VectorQuantize):
+            if isinstance(m, (VectorQuantize, Snake1d)):
                 m.plain_ops = plain_ops
         self.module.to(self.device).eval()
         self.sample_rate = self.module.sample_rate

@@ -48,6 +48,8 @@ _SIGNATURES = {
                               _i, _i, _i, _i, _i, _i, _i, _i, _vp], _i),
     "esc_layer_norm": ([_vp, _vp, _vp, _vp, _f, ctypes.POINTER(_i), _vp],
                        _i),
+    "esc_snake": ([_vp, _vp, _vp, ctypes.POINTER(ctypes.c_uint32), _vp],
+                  _i),
     "esc_cuda_error_string": ([_i], ctypes.c_char_p),
 }
 

@@ -6,6 +6,8 @@ file imports no JAX, so it also runs where JAX is absent:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_port_cuda.py
 """
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -13,8 +15,8 @@ import torch
 from esc_tpu_torch.models import ESC, make_model
 from esc_tpu_torch.modules.scale import LayerNorm
 from esc_tpu_torch.ops.kernels import (codebook_argmin, codebook_argmin_plain,
-                                       layer_norm, layer_norm_plain,
-                                       window_attention,
+                                       layer_norm, layer_norm_plain, snake,
+                                       snake_plain, window_attention,
                                        window_attention_plain)
 from esc_tpu_torch.ops.kernels.codebook_argmin import launch_plan
 
@@ -733,3 +735,152 @@ def test_layer_norm_refusals(cuda):
         layer_norm(x.clone().requires_grad_(), w, b, 1e-6)
     with torch.no_grad():
         layer_norm(x.clone().requires_grad_(), w, b, 1e-6)
+
+
+# ------------------------------------------------------------- snake
+# (C, T) of the 58 snakes of one padded roundtrip of 3 s at the DAC cell's
+# configuration (portbench/metrics/snake_roofline.py::snake_calls), batch 16
+SNAKE_CELL = [(64, 48000), (96, 47992), (128, 24000), (192, 23996),
+              (256, 6000), (384, 5999), (512, 1200), (768, 1200),
+              (1024, 150), (1536, 150)]
+SNAKE_ALPHAS = ["one", "positive", "near_zero", "negative"]
+
+
+def _snake_alpha(rng, C, kind, dev):
+    a = {"one": np.ones(C),
+         "positive": rng.uniform(0.05, 4.0, C),
+         "near_zero": rng.choice([-1, 1], C) * 10.0 ** rng.uniform(-7, -3, C),
+         "negative": -rng.uniform(0.05, 4.0, C)}[kind]
+    return torch.tensor(a.reshape(1, C, 1), dtype=torch.float32, device=dev)
+
+
+def _snake_input(rng, B, C, T, dev):
+    """Normal values, every 997th 1e5 times larger: sinf's long range
+    reduction past |alpha x| = 105,615."""
+    x = torch.randn(B, C, T, generator=torch.Generator(dev).manual_seed(
+        int(rng.integers(1 << 31))), device=dev) * 3
+    flat = x.view(-1)
+    flat[::997] *= 1e5
+    return x
+
+
+def _same_bits(a, b):
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+@pytest.mark.parametrize("kind", SNAKE_ALPHAS)
+@pytest.mark.parametrize("C,T", SNAKE_CELL)
+def test_snake_kernel_is_plain_bit_for_bit_at_the_cell(rng, cuda, C, T,
+                                                       kind):
+    x = _snake_input(rng, 16, C, T, cuda)
+    alpha = _snake_alpha(rng, C, kind, cuda)
+    n = snake.launches
+    ours = snake(x, alpha)
+    torch.cuda.synchronize()
+    assert snake.launches == n + 1
+    assert _same_bits(ours, snake_plain(x, alpha))
+
+
+@pytest.mark.parametrize("kind", SNAKE_ALPHAS)
+@pytest.mark.parametrize("B,C,T", [(3, 7, 1), (2, 5, 3), (4, 33, 5999),
+                                   (5, 1, 4097), (1, 1, 1), (1, 1, 3),
+                                   (2, 3, 6)])
+def test_snake_kernel_edge_shapes(rng, cuda, B, C, T, kind):
+    """Rows shorter than a float4, a single channel, arrays shorter than
+    one float4, and rows of odd length."""
+    x = _snake_input(rng, B, C, T, cuda)
+    alpha = _snake_alpha(rng, C, kind, cuda)
+    assert _same_bits(snake(x, alpha), snake_plain(x, alpha))
+
+
+@pytest.mark.parametrize("shift", [1, 2, 3])
+@pytest.mark.parametrize("C,T", [(96, 47992), (1536, 150), (7, 3)])
+def test_snake_kernel_misaligned_start(rng, cuda, C, T, shift):
+    """x ``shift`` floats past a 16-byte boundary (a view into a larger
+    buffer), the output aligned: the kernel takes each element alone."""
+    x = _snake_input(rng, 2, C, T, cuda)
+    flat = torch.empty(x.numel() + shift, device=cuda)
+    xs = flat[shift:].view(2, C, T)
+    xs.copy_(x)
+    assert xs.is_contiguous() and xs.data_ptr() % 16 != 0
+    alpha = _snake_alpha(rng, C, "positive", cuda)
+    ours = snake(xs, alpha)
+    assert ours.data_ptr() % 16 == 0
+    assert _same_bits(ours, snake_plain(x, alpha))
+
+
+def test_snake_refusals(cuda):
+    x = torch.randn(2, 4, 10, device=cuda)
+    alpha = torch.ones(1, 4, 1, device=cuda)
+    n = snake.launches
+    with pytest.raises(TypeError):
+        snake(x.double(), alpha.double())
+    with pytest.raises(ValueError):
+        snake(x.transpose(1, 2).contiguous().transpose(1, 2), alpha)
+    with pytest.raises(ValueError):
+        snake(x, torch.ones(1, 5, 1, device=cuda))
+    with pytest.raises(ValueError):
+        snake(x, torch.ones(4, device=cuda))
+    with pytest.raises(RuntimeError):
+        snake(x.clone().requires_grad_(), alpha)
+    with pytest.raises(RuntimeError):
+        snake(x, alpha.clone().requires_grad_())
+    assert snake.launches == n
+    with torch.no_grad():
+        snake(x.clone().requires_grad_(), alpha.clone().requires_grad_())
+    assert snake.launches == n + 1
+
+
+def _published_dac(cuda, **kw):
+    from esc_tpu_torch.baselines.dac import DAC
+    from esc_tpu_torch.utils.config import read_yaml
+
+    cfg = read_yaml(str(Path(__file__).resolve().parents[1] / "configs"
+                        / "dac" / "16khz_dns_9k.yml"))["DAC"]
+    return DAC(seed=5, device=cuda, **cfg, **kw)
+
+
+def test_dac_roundtrip_of_the_cell_launches_58_snakes(rng, cuda):
+    """One encode_codes + decode_codes of 16 x 48,000 samples: 29 snakes in
+    the encoder, 29 in the decoder, each one launch; codes and waveform
+    bit for bit those of the same model with plain snakes (the same argmin
+    kernel on both sides)."""
+    from esc_tpu_torch.baselines.dac.layers import Snake1d
+
+    model = _published_dac(cuda)
+    plain_snakes = _published_dac(cuda)
+    for m in plain_snakes.module.modules():
+        if isinstance(m, Snake1d):
+            m.plain_ops = True
+    x = (0.2 * rng.standard_normal((16, 48000))).astype(np.float32)
+    n = snake.launches
+    codes = model.encode_codes(x)
+    wave = model.decode_codes(codes)
+    torch.cuda.synchronize()
+    assert snake.launches == n + 58
+    pcodes = plain_snakes.encode_codes(x)
+    assert snake.launches == n + 58
+    assert torch.equal(codes, pcodes)
+    assert _same_bits(wave, plain_snakes.decode_codes(codes))
+
+
+def test_dac_training_and_plain_ops_launch_no_snake(rng, cuda):
+    from esc_tpu_torch.baselines.dac.layers import Snake1d
+
+    plain = _published_dac(cuda, plain_ops=True)
+    assert all(m.plain_ops for m in plain.module.modules()
+               if isinstance(m, Snake1d))
+    x = torch.tensor((0.2 * rng.standard_normal((2, 16000)))
+                     .astype(np.float32), device=cuda)
+    n = snake.launches
+    plain.encode_codes(x)
+    model = _published_dac(cuda)
+    model.module.train()
+    out = model.module(x)
+    out["audio"].abs().mean().backward()
+    model.module.eval()
+    with torch.enable_grad():
+        model.module.encoder(x[:, None])
+    torch.cuda.synchronize()
+    assert snake.launches == n
