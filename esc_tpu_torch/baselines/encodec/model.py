@@ -15,7 +15,18 @@ The module tree is the release's: ``encoder.model.{n}`` / ``decoder.model.
 layers.{q}``, so its state dict has the release's 156 keys at full width.
 Channels-first throughout. :class:`Encodec` is the comparison interface:
 a target bandwidth, audio at any sample rate resampled to 24 kHz and back
-(:func:`esc_tpu_torch.ops.resample.resample`).
+(:func:`esc_tpu_torch.ops.resample.resample`); its ``encode`` / ``decode``
+are also the serving pair ``encode_codes`` / ``decode_codes`` of
+:func:`esc_tpu_torch.serving.stream_map`.
+
+Spans (:func:`esc_tpu_torch.utils.profiling.annotate`): the SEANet stacks
+walk ``model`` in stages, without renaming a module: ``encoder.embed``
+(the first conv), ``encoder.s0``-``s3`` (the residual unit, ELU and
+strided conv of each ratio), ``encoder.lstm``, ``encoder.post`` (ELU and
+the last conv); ``decoder.pre``, ``decoder.lstm``, ``decoder.s0``-``s3``,
+``decoder.post``; ``vq.s0`` around the whole quantizer in encode and in
+decode; ``codec.encode`` / ``codec.decode`` around :class:`Encodec`'s
+``encode`` / ``decode``, with ``codec.upload`` inside them.
 """
 
 from __future__ import annotations
@@ -29,6 +40,8 @@ import torch.nn as nn
 
 from ...device import resolve_device
 from ...ops.resample import resample
+from ...utils.graphs import StageGraphs, stage
+from ...utils.profiling import annotate
 from ..dac.layers import _WeightNorm
 from .layers import SConv1d, SConvTranspose1d, SEANetResnetBlock, SLSTM
 from .quantize import EncodecRVQ
@@ -41,9 +54,31 @@ __all__ = ["SEANetEncoder", "SEANetDecoder", "EncodecModule", "Encodec",
 _TRUNC_STD = 0.87962566103423978
 
 
+def _run(layers, x, into=None, out=None) -> torch.Tensor:
+    if into is not None:
+        x = into(x)
+    for layer in layers:
+        x = layer(x)
+    return x if out is None else out(x)
+
+
+def _staged(model: nn.Sequential, stages, x: torch.Tensor,
+            into=None, out=None) -> torch.Tensor:
+    """``model``'s layers in order, each run of ``stages``' ``(span,
+    count)`` one stage (:func:`esc_tpu_torch.utils.graphs.stage`); ``into``
+    reshapes the input inside the first, ``out`` the output inside the
+    last."""
+    i, last = 0, len(stages) - 1
+    for k, (name, count) in enumerate(stages):
+        x = stage(name, _run, model[i:i + count], x,
+                  into if k == 0 else None, out if k == last else None)
+        i += count
+    return x
+
+
 class SEANetEncoder(nn.Module):
-    """``(B, 1, L)`` waveform -> ``(B, dimension, T)`` latents
-    (``model.py:40-91``)."""
+    """``(B, 1, L)`` or ``(B, L)`` waveform -> ``(B, dimension, T)``
+    latents (``model.py:40-91``)."""
 
     def __init__(self, dimension: int = 128, n_filters: int = 32,
                  ratios: Tuple[int, ...] = (8, 5, 4, 2),
@@ -66,19 +101,25 @@ class SEANetEncoder(nn.Module):
                                          mult * n_filters * 2, 2 * ratio,
                                          stride=ratio, **conv)]
             mult *= 2
+        stages = [("encoder.embed", 1)] + [
+            (f"encoder.s{i}", n_residual_layers + 2)
+            for i in range(len(ratios))]
         if lstm:
             layers.append(SLSTM(mult * n_filters, lstm))
+            stages.append(("encoder.lstm", 1))
         layers += [nn.ELU(), SConv1d(mult * n_filters, dimension,
                                      last_kernel_size, **conv)]
         self.model = nn.Sequential(*layers)
+        self.stages = stages + [("encoder.post", 2)]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.model(x)
+        return _staged(self.model, self.stages, x,
+                       into=(lambda x: x[:, None]) if x.dim() == 2 else None)
 
 
 class SEANetDecoder(nn.Module):
-    """``(B, dimension, T)`` latents -> ``(B, 1, T * hop)`` waveform
-    (``model.py:94-144``)."""
+    """``(B, dimension, T)`` latents -> ``(B, 1, T * hop)`` waveform, or
+    with ``mono`` ``(B, T * hop)`` (``model.py:94-144``)."""
 
     def __init__(self, dimension: int = 128, n_filters: int = 32,
                  ratios: Tuple[int, ...] = (8, 5, 4, 2),
@@ -91,8 +132,12 @@ class SEANetDecoder(nn.Module):
         conv = dict(causal=causal, pad_mode=pad_mode)
         mult = 2 ** len(ratios)
         layers = [SConv1d(dimension, mult * n_filters, kernel_size, **conv)]
+        stages = [("decoder.pre", 1)]
         if lstm:
             layers.append(SLSTM(mult * n_filters, lstm))
+            stages.append(("decoder.lstm", 1))
+        stages += [(f"decoder.s{i}", n_residual_layers + 2)
+                   for i in range(len(ratios))]
         for ratio in ratios:
             layers += [nn.ELU(), SConvTranspose1d(
                 mult * n_filters, mult * n_filters // 2, 2 * ratio,
@@ -105,9 +150,11 @@ class SEANetDecoder(nn.Module):
             mult //= 2
         layers += [nn.ELU(), SConv1d(n_filters, 1, last_kernel_size, **conv)]
         self.model = nn.Sequential(*layers)
+        self.stages = stages + [("decoder.post", 2)]
 
-    def forward(self, z: torch.Tensor) -> torch.Tensor:
-        return self.model(z)
+    def forward(self, z: torch.Tensor, mono: bool = False) -> torch.Tensor:
+        return _staged(self.model, self.stages, z,
+                       out=(lambda y: y[:, 0]) if mono else None)
 
 
 class EncodecModule(nn.Module):
@@ -135,20 +182,20 @@ class EncodecModule(nn.Module):
     def encode(self, x: torch.Tensor, n_q: Optional[int] = None
                ) -> torch.Tensor:
         """``(B, L)`` -> codes ``(B, n_q, T)``."""
-        return self.quantizer.encode(self.encoder(x[:, None]), n_q)
+        return stage("vq.s0", self.quantizer.encode, self.encoder(x), n_q)
 
     def decode(self, codes: torch.Tensor) -> torch.Tensor:
         """Codes ``(B, n_q, T)`` -> ``(B, T * hop)``."""
-        return self.decoder(self.quantizer.decode(codes))[:, 0]
+        return self.decoder(stage("vq.s0", self.quantizer.decode, codes),
+                            mono=True)
 
     def forward(self, x: torch.Tensor, n_q: Optional[int] = None,
                 training: bool = False) -> dict:
         """``{"audio": (B, L), "codes", "vq/commitment_loss": (B,)}``; with
         ``training`` the straight-through estimator and the commitment
         loss."""
-        zq, codes, commit = self.quantizer(self.encoder(x[:, None]), n_q,
-                                           training)
-        recon = self.decoder(zq)[:, 0]
+        zq, codes, commit = self.quantizer(self.encoder(x), n_q, training)
+        recon = self.decoder(zq, mono=True)
         return {"audio": recon[:, :x.shape[-1]], "codes": codes,
                 "vq/commitment_loss": commit}
 
@@ -184,9 +231,10 @@ def init_encodec(module: nn.Module, generator: torch.Generator
 class Encodec:
     """The comparison wrapper (``model.py:205-288``): pick a target
     bandwidth, feed audio at any sample rate, get the reconstruction back
-    at that rate. Weights from ``seed``, or :meth:`load_torch_weights`;
-    outputs stay on ``device`` (the card unless the caller asks for the
-    CPU)."""
+    at that rate; or serve 24 kHz batches through :meth:`encode_codes` /
+    :meth:`decode_codes`. Weights from ``seed``, or
+    :meth:`load_torch_weights`; outputs stay on ``device`` (the card unless
+    the caller asks for the CPU)."""
 
     def __init__(self, sample_rate: int = 24000, bandwidth: float = 6.0,
                  seed: int = 0,
@@ -238,22 +286,63 @@ class Encodec:
         return sum(p.numel() for p in self.module.parameters())
 
     # -- codec -------------------------------------------------------------
-    def _audio(self, x) -> torch.Tensor:
-        if not isinstance(x, torch.Tensor):
-            x = torch.from_numpy(np.array(x, np.float32))
-        x = x.to(self.device, torch.float32)
-        return x[None] if x.dim() == 1 else x
+    def _audio(self, x, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The waveform ``x`` as float32 ``(B, L)`` on the device, or
+        copied into ``out``."""
+        with annotate("codec.upload"):
+            if not isinstance(x, torch.Tensor):
+                x = torch.from_numpy(np.array(x, np.float32))
+            x = x[None] if x.dim() == 1 else x
+            return x.to(self.device, torch.float32) if out is None \
+                else out.copy_(x)
+
+    def _codes(self, codes, out: Optional[torch.Tensor] = None
+               ) -> torch.Tensor:
+        """``codes`` on the device, or copied into ``out``."""
+        with annotate("codec.upload"):
+            return codes.to(self.device) if out is None else out.copy_(codes)
+
+    def _graphs(self) -> Optional[StageGraphs]:
+        """The stage graphs of the module where its calls may replay them
+        (a CUDA device, eval mode), else None."""
+        return StageGraphs.of(self, self.module, self.device)
 
     @torch.no_grad()
     def encode(self, audio) -> torch.Tensor:
-        """24 kHz ``(B, L)`` -> codes ``(B, n_q, T)`` at the target
-        bandwidth."""
-        return self.module.encode(self._audio(audio), self.n_q)
+        """24 kHz ``(B, L)`` or ``(L,)``, a host array or a tensor on any
+        device -> codes ``(B, n_q, T)`` on the device at the target
+        bandwidth (span ``codec.encode``); a repeated shape on a card
+        replays stage graphs (:mod:`esc_tpu_torch.utils.graphs`)."""
+        with annotate("codec.encode"):
+            n_q, graphs = self.n_q, self._graphs()
+            if graphs is None:
+                return self.module.encode(self._audio(audio), n_q)
+            shape = tuple(np.shape(audio))
+            shape = (1,) + shape if len(shape) == 1 else shape
+            return graphs.call(("encode", shape, n_q), shape, torch.float32,
+                               lambda out: self._audio(audio, out),
+                               lambda x: self.module.encode(x, n_q))
 
     @torch.no_grad()
     def decode(self, codes) -> torch.Tensor:
-        """Codes ``(B, n_q, T)`` -> 24 kHz ``(B, T * hop)``."""
-        return self.module.decode(torch.as_tensor(codes).to(self.device))
+        """Codes ``(B, n_q, T)``, a host array or a tensor -> 24 kHz ``(B,
+        T * hop)`` on the device (span ``codec.decode``), as :meth:`encode`
+        through stage graphs."""
+        with annotate("codec.decode"):
+            if not isinstance(codes, torch.Tensor):
+                with annotate("codec.upload"):  # the key needs its dtype
+                    codes = torch.from_numpy(np.array(codes))
+            graphs = self._graphs()
+            if graphs is None:
+                return self.module.decode(self._codes(codes))
+            shape = tuple(codes.shape)
+            return graphs.call(
+                ("decode", shape, codes.dtype), shape, codes.dtype,
+                lambda out: self._codes(codes, out), self.module.decode)
+
+    # the serving pair of :func:`esc_tpu_torch.serving.stream_map`
+    encode_codes = encode
+    decode_codes = decode
 
     @torch.no_grad()
     def __call__(self, audio, sample_rate: int = 24000) -> torch.Tensor:

@@ -363,14 +363,8 @@ class Codec:
     def _graphs(self) -> Optional[StageGraphs]:
         """The stage graphs of this codec's module where its calls may
         replay them (a CUDA device, the kernels, eval mode), else None."""
-        if (self.device.type != "cuda" or self.plain_ops
-                or self.module.training):
-            return None
-        graphs = self.__dict__.get("_stage_graphs")
-        if graphs is None or graphs.module is not self.module:
-            graphs = self._stage_graphs = StageGraphs(self.module,
-                                                      self.device)
-        return graphs
+        return StageGraphs.of(self, self.module, self.device,
+                              not self.plain_ops)
 
     @torch.no_grad()
     def encode(self, x, num_streams: int = 6

@@ -203,8 +203,23 @@ class _Chain:
 
 class StageGraphs:
     """A codec's chains, by call key, for ``module`` (see the module
-    docstring for the policy). The codec makes one where its calls may
-    replay graphs: on a CUDA device, with the kernels, in eval mode."""
+    docstring for the policy). The codec keeps one (:meth:`of`) where its
+    calls may replay graphs: on a CUDA device, with the kernels, in eval
+    mode."""
+
+    @staticmethod
+    def of(owner: Any, module: nn.Module, device: torch.device,
+           enabled: bool = True) -> Optional["StageGraphs"]:
+        """The stage graphs that ``owner`` (a codec) keeps, as
+        ``owner._stage_graphs``, for ``module``, where its calls may replay
+        them: on a CUDA device, ``enabled`` and in eval mode; else None.
+        Made at the first such call, and anew for a replaced module."""
+        if device.type != "cuda" or not enabled or module.training:
+            return None
+        graphs = owner.__dict__.get("_stage_graphs")
+        if graphs is None or graphs.module is not module:
+            graphs = owner._stage_graphs = StageGraphs(module, device)
+        return graphs
 
     def __init__(self, module: nn.Module, device: torch.device):
         self.module = module

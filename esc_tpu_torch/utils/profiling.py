@@ -27,16 +27,22 @@ span's parent is the span that encloses it:
   ``encoder.s{i}``, one per down-scaling layer; in the DAC
   (``baselines/dac/model.py``) ``encoder.embed`` is the first conv,
   ``encoder.s{i}`` one per ``EncoderBlock`` and ``encoder.post`` the last
-  snake and conv;
+  snake and conv; in EnCodec (``baselines/encodec/model.py``)
+  ``encoder.embed`` is the first conv, ``encoder.s{i}`` the residual unit,
+  ELU and strided conv of each ratio, ``encoder.lstm`` the SLSTM and
+  ``encoder.post`` the last ELU and conv;
 - ``vq``: ``vq.s{i}``, one per product VQ call of scale ``i`` (0 the
   bottleneck), with the residual that feeds it and the sum that leaves it;
   an RVQ codec's whole quantizer is ``vq.s0`` (the DAC's in its encode and
-  in ``from_codes``);
+  in ``from_codes``, EnCodec's in its encode and decode);
 - ``decoder``: ``decoder.s{i}``, one per up-scaling layer, and
   ``decoder.post`` (the top layer and patch de-embedding). A cross-scale
   ESC encode runs the decoder's layers too, between its scales. The DAC's
   are ``decoder.pre`` (the first conv), ``decoder.s{i}`` (one per
   ``DecoderBlock``) and ``decoder.post`` (last snake, conv and tanh);
+  EnCodec's ``decoder.pre``, ``decoder.lstm``, ``decoder.s{i}`` (the ELU,
+  strided transposed conv and residual unit of each ratio) and
+  ``decoder.post``;
 - ``act``: ``act.snake`` around each call of the DAC's snake activation
   (``baselines/dac/layers.py::Snake1d``), nested in the stage spans;
 - ``dp``: ``dp.allreduce`` around the exchange of ``DataParallel``'s
